@@ -1,11 +1,13 @@
-"""TPU-native Bayesian data fusion: BPMF / Macau Gibbs sampling on JAX.
+"""Bayesian data fusion on an accelerator: BPMF / Macau Gibbs sampling on JAX.
 
-A from-scratch, TPU-first re-design of the capabilities of
-``jaak-s/BayesianDataFusion.jl`` (see SURVEY.md).  Export list mirrors the
+A from-scratch, accelerator-first re-design of the capabilities of
+``jaak-s/BayesianDataFusion.jl`` (see SURVEY.md), run on NVIDIA GPUs
+through XLA.  Export list mirrors the
 reference module spine (src/BayesianDataFusion.jl [HIGH]): RelationData,
 Relation, Entity, IndexedDF, macau, assign_to_test/add_relation/
 set_precision (Julia's bang-functions), SparseBinMatrix and the sparse I/O
-helpers.  TPU-only additions live under ops/, parallel/ and utils/.
+helpers.  Additions without a reference counterpart live under ops/,
+parallel/ and utils/.
 """
 
 from .models.data import (Entity, EntityModel, IndexedDF, Relation,

@@ -28,7 +28,7 @@ class IndexedDF:
     """N-way sparse relation: integer index columns + a value column.
 
     Replaces the reference's DataFrame-backed IndexedDF; the per-mode
-    inverted index is built lazily (``index(mode)``) and the TPU engine
+    inverted index is built lazily (``index(mode)``) and the device engine
     instead compiles a bucketed layout from the raw COO arrays.
     """
 

@@ -11,7 +11,7 @@ Orchestration follows SURVEY.md §4.6 exactly:
     for r in relations: optional alpha_r Gibbs from train residuals (§4.5)
     predict test tuples, clamp per sample, accumulate posterior mean (§4.7)
 
-TPU design: the whole sweep is ONE jitted function over static-shaped
+Design: the whole sweep is ONE jitted function over static-shaped
 bucketed layouts (ops/layout.py) — no retracing, no host round-trips inside
 a sweep.  Randomness comes from a pre-built randoms pytree (utils/rng.py)
 so the engine has an injection seam for oracle equivalence, and the default
@@ -38,7 +38,8 @@ from ..ops.gramian import (assemble_precision,
                            predict_tuples)
 from ..ops.hyper import (normal_wishart_update, sample_alpha,
                          sample_lambda_beta)
-from ..ops.mvn import chol_sample_dispatch, use_pallas_chol
+from ..ops.mvn import chol_sample_dispatch
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.config import MacauConfig
 from ..utils.rng import DrawSpec, RandomSpec, draw_all, sweep_key
 from .data import (RelationData, resolved_alpha, resolved_alpha_sample,
@@ -48,13 +49,6 @@ from .data import (RelationData, resolved_alpha, resolved_alpha_sample,
 # ---------------------------------------------------------------------------
 # Static problem description (hashable; closed over by the jitted sweep)
 # ---------------------------------------------------------------------------
-
-# Pair-store padding knobs (see CompiledProblem.pair_pad_dims): the
-# granule covers the packed-sampler tiles (512/256/128); small pairs skip
-# padding (pad waste exceeds the per-sweep pad copy they'd save).
-_PAIR_PAD_GRAN = 512
-_PAIR_PAD_MIN_CELLS = 1e8
-
 
 @dataclasses.dataclass(frozen=True)
 class EntitySpec:
@@ -103,7 +97,7 @@ class CompiledProblem:
         self.layout_meta: Dict[str, List[Tuple[int, int]]] = {}
         host_inst: Dict[str, List[np.ndarray]] = {}
 
-        # dense-MXU Gramian plan (ops/dense_gram.py): modes that replace the
+        # dense Gramian plan (ops/dense_gram.py): modes that replace the
         # observation gather with M @ Y matmuls skip the bucketed layout
         from ..ops import dense_gram as dg
         store_np = (np.float32 if config.gram_dtype == "bfloat16"
@@ -149,17 +143,10 @@ class CompiledProblem:
             config.dense_gram,
             config.dense_gram_budget_gb * 1e9 - fused_spent,
             pair_item)
-        # Pallas fused kernel when the Pallas sampler family is on (TPU
-        # f32 auto, or forced): on TPU BOTH V8 orientations must go
-        # through the kernel or XLA materializes a transposed copy of the
-        # whole array (7.96 GB at Netflix scale — r3 OOM); the kernel
-        # needs block-multiple shapes, so pad the store (cells stay 0)
-        self.fused_pallas = use_pallas_chol(config)
-        # fused s8 MXU variant (2x the bf16 kernel rate, r3 probe: 163 vs
-        # 109 TOP/s at Netflix scale): opt-in via dense_int8 like the pair
-        # path, gated on int32-overflow eligibility.  Decided from the
-        # encoding + true shape only (fused_int8_ok pads internally) so
-        # the single-device and sharded engines always agree.
+        # fused s8 variant: opt-in via dense_int8 like the pair path,
+        # gated on int32-overflow eligibility.  Decided from the encoding
+        # + true shape only so the single-device and sharded engines
+        # always agree.
         self.fused_i8: Dict[int, bool] = {}
         # ri -> bool keep mask when the fused relation has a gather-path
         # residual (None entries never stored; empty dict = no hybrids)
@@ -178,18 +165,14 @@ class CompiledProblem:
                     shapes[ri], idx=idx_k,
                     abs_codes=dg.fused_abs_codes(vals_k, *_enc)))
             arrays["dense"][f"r{ri}"] = {"V8": dg.build_fused_values_device(
-                idx_k, vals_k, shapes[ri], *_enc,
-                pad_to=(1024, 512) if self.fused_pallas else None)}
+                idx_k, vals_k, shapes[ri], *_enc)}
             if self.fused_i8[ri]:
                 # static per-mode observation counts for the int8 PD ridge
                 # (fused-path observations only: the residual's values are
-                # exact, so it adds no quantization noise to bound);
-                # sized to the STORED (kernel-padded) dims so the
-                # keep_pad finish can ridge the padded extent (pads = 0)
-                vshape = arrays["dense"][f"r{ri}"]["V8"].shape
+                # exact, so it adds no quantization noise to bound)
                 for mode in range(2):
                     deg = np.bincount(idx_k[:, mode],
-                                      minlength=vshape[mode])
+                                      minlength=shapes[ri][mode])
                     arrays["dense"][f"r{ri}"][f"deg_m{mode}"] = \
                         jnp.asarray(deg, jnp.float32)
             for mode in range(2):
@@ -197,60 +180,21 @@ class CompiledProblem:
                     "fused", shapes[ri][mode],
                     (shapes[ri][1 - mode],))
         self.dense_w_scale: Dict[int, float] = {}  # ri -> static int8 scale
-        # ri -> (p0, p1) stored (padded) dims for big 2-ary pairs: padding
-        # both dims to the packed-sampler tile granule at BUILD time makes
-        # the contraction outputs arrive sampler-aligned — deleting the
-        # per-sweep [CK, N] pad copy (1.75 ms at ML-10M K=64, r5 trace).
-        # Pad cells are zero counts/values, so every contraction output
-        # on the pad extent is exactly 0 (P = Lambda there; prior draws,
-        # sliced off after the sampler).  Gated to configs where the
-        # packed fast path is certain at build time.
-        self.pair_pad_dims: Dict[int, Tuple[int, int]] = {}
-        # pad decisions are per ENTITY: every pair relation touching a
-        # padded entity must emit the SAME padded focus extent, or the
-        # packed accumulation of a multi-relation entity mixes widths
-        # (fusion-graph crash, r5: (528, 50000) + (528, 50176))
-        ent_pad: Dict[int, int] = {}
-        if (use_pallas_chol(config) and K <= 96
-                and config.accumulation != "planned"
-                and not self.fused_rels):
-            for ri in sorted(_dense_canon):
-                rel = rd.relations[ri]
-                cnts = [e.count for e in rel.entities]
-                if (rel.arity != 2
-                        or float(cnts[0]) * cnts[1] < _PAIR_PAD_MIN_CELLS):
-                    continue
-                for e in rel.entities:
-                    ei_ = ent_index[id(e)]
-                    ent_pad[ei_] = -(-e.count // _PAIR_PAD_GRAN) \
-                        * _PAIR_PAD_GRAN
         for ri in sorted(_dense_canon):
             rel = rd.relations[ri]
-            dims_true = [e.count for e in rel.entities]
-            pad_dims = None
-            if rel.arity == 2 and ent_pad:
-                pd = [ent_pad.get(ent_index[id(e)], e.count)
-                      for e in rel.entities]
-                if tuple(pd) != tuple(dims_true):
-                    pad_dims = pd
-                    self.pair_pad_dims[ri] = tuple(pd)
+            dims = [e.count for e in rel.entities]
             M, W = dg.build_dense_pair(
                 rel.data.idx, rel.data.vals - float(rel.data.vals.mean()),
-                pad_dims if pad_dims is not None else dims_true, store_np)
+                dims, store_np)
             q8 = dg.quantize_dense_pair(M, W) if i8_ok[ri] else None
             if q8 is not None:
                 M8, W8, self.dense_w_scale[ri] = q8
                 arrays["dense"][f"r{ri}"] = {"M": jnp.asarray(M8),
                                              "W": jnp.asarray(W8)}
-                # static per-mode observation counts for the int8 PD
-                # ridge, sized to the STORED (possibly padded) dims so
-                # the keep-pad outputs can ridge the padded extent
-                # (pad rows have deg 0 -> ridge 0)
-                sdims = self.pair_pad_dims.get(
-                    ri, tuple(e.count for e in rel.entities))
+                # static per-mode observation counts for the int8 PD ridge
                 for mode in range(rel.arity):
                     deg = np.bincount(rel.data.idx[:, mode],
-                                      minlength=sdims[mode])
+                                      minlength=dims[mode])
                     arrays["dense"][f"r{ri}"][f"deg_m{mode}"] = \
                         jnp.asarray(deg, jnp.float32)
                 del M8, W8
@@ -327,10 +271,9 @@ class CompiledProblem:
                 # compute dtype so the CG operator is unchanged
                 fx_jnp = store_jnp if F.is_binary else jnp.dtype(dtype)
                 if F.is_binary and store_jnp == jnp.bfloat16:
-                    # binary X is exact in any dtype; int8 halves the HBM
-                    # stream of the bandwidth-bound CG matvec (the int8 ->
-                    # bf16 convert fuses into the dot: 4.12 -> 2.95 ms per
-                    # X'(Xv) at 15k x 32k on v5e)
+                    # binary X is exact in any dtype; int8 halves the
+                    # memory stream of the bandwidth-bound CG matvec (the
+                    # int8 -> bf16 convert fuses into the dot)
                     fx_jnp = jnp.int8
                 if dg.use_dense_feat(ent.count, nf, F.nnz,
                                      jnp.dtype(fx_jnp).itemsize,
@@ -591,8 +534,7 @@ class GibbsDriverMixin:
         ``repeats`` timed windows of ``num_sweeps`` sweeps each —
         continuing one Gibbs chain, so every window does identical
         static-shaped work.  Ends each window with a real device->host
-        transfer (``block_until_ready`` can return before execution
-        completes on relayed transports).
+        transfer, so every window's time includes all of its device work.
 
         Returns::
 
@@ -697,6 +639,7 @@ class MacauEngine(GibbsDriverMixin):
     """Compiled Gibbs engine for one RelationData graph."""
 
     def __init__(self, rd: RelationData, config: MacauConfig):
+        enable_compile_cache()
         self.rd = rd
         self.config = config
         self.problem = CompiledProblem(rd, config)
@@ -807,131 +750,14 @@ class MacauEngine(GibbsDriverMixin):
                     for ba in arrays["layouts"][f"r{ri}m{mode}"]:
                         contribs.append((rels[ri]["alpha"], partners, ba))
             gd = jnp.dtype(cfg.gram_dtype) if cfg.gram_dtype else None
-            fuse = use_pallas_chol(cfg)
-            # packed-triangle fast path: when EVERY contribution is dense
-            # and a packed Pallas sampler applies (K <= 32 unrolled,
-            # 32 < K <= 96 column-slab), keep P in the einsum's native
-            # [N, K(K+1)/2] packing end to end — no [N, K^2] expand pass,
-            # half the P HBM into the kernel.  Bit-identical to the
-            # expand+full path (same values, same accumulation order;
-            # ops/pallas_chol.chol_sample_packed*).
-            # (hybrid fused relations add their gather-path residual
-            # buckets via packed_bucket_accum below, so `contribs` no
-            # longer disables the packed path when dense modes exist)
-            if (fuse and K <= 96 and dense_contribs
-                    and cfg.accumulation != "planned"):
-                from ..ops.pallas_chol import chol_sample_packed_dispatch
-                # Packed-layout orientation is a PER-MODE preference
-                # (r3 fori-loop microbench, ML-10M):
-                #   mode 0 (contraction along the stored minor axis):
-                #     flipped [C, N] output 4.66 ms vs natural 8.26
-                #   mode 1 (contraction along the stored MAJOR axis):
-                #     natural [N, C] output 5.67 ms vs flipped 7.53
-                # and fused contributions run the masked dot 2.5x slower
-                # flipped.  All of one entity's contributions must share
-                # the accumulator layout, so choose by cell-weighted
-                # majority; the saved/paid pre-sampler transpose is tiny
-                # by comparison ([N, C] once vs the contraction that
-                # touches every stored cell).
-                vote = 0.0
-                for _a, _p, ri_, mode_, pl_ in dense_contribs:
-                    cells = float(pl_.n_focus) * float(
-                        np.prod(pl_.partner_counts))
-                    if pl_.kind == "fused":
-                        # with the flip_out Pallas kernel the fused mode
-                        # emits the [C, N] kernel layout directly
-                        # (VERDICT r3 #3) and so PREFERS the transposed
-                        # accumulator; the XLA fallback keeps the natural
-                        # preference (its flipped masked einsum is 2.5x
-                        # slower, r3 probe)
-                        prefers_trans = self.problem.fused_pallas
-                    else:
-                        prefers_trans = (len(pl_.partner_counts) > 1
-                                         or mode_ == 0)
-                    vote += cells if prefers_trans else -cells
-                trans = vote > 0.0
-                b_acc = (jnp.einsum("nk,kj->jn", prior_mean, Lambda)
-                         if trans else
-                         jnp.einsum("nk,kj->nj", prior_mean, Lambda))
-                # keep_pad (r4, VERDICT weak #2 headroom): a lone fused
-                # s8 contribution through the flip kernel skips the
-                # lane-dim strip of its [CK, 480k] output (~3 ms at
-                # Netflix scale) — pad columns are exact zeros, the
-                # sampler adds Lambda in-kernel (pad rows draw the
-                # prior), and only the small [n_pad, K] factor output is
-                # sliced back
-                pad_keep = (trans and len(dense_contribs) == 1
-                            and dense_contribs[0][4].kind == "fused"
-                            and self.problem.fused_pallas
-                            and self.problem.fused_i8.get(
-                                dense_contribs[0][2], False))
-                Pp_acc = None
-                for alpha, partners, ri, mode, plan in dense_contribs:
-                    with jax.named_scope(f"dense_r{ri}m{mode}"):
-                        mdt = gd if gd is not None else dtype
-                        # alpha always folds into the contribution
-                        # (_dense_mode_contrib contract) — no [CK, N]
-                        # alpha pass here
-                        P_p, b_d = self._dense_mode_contrib(
-                            arrays, ri, mode, plan, partners, dtype, mdt,
-                            packed=True, transposed=trans,
-                            keep_pad=pad_keep, alpha=alpha)
-                        Pp_acc = (P_p if Pp_acc is None
-                                  else Pp_acc + P_p)
-                        b_acc_c = b_acc
-                        # padded focus extents (fused keep_pad / the
-                        # pair_pad_dims store): grow the prior term to
-                        # match along the batch axis of either layout
-                        if trans and b_d.shape[-1] != b_acc.shape[-1]:
-                            b_acc_c = jnp.pad(
-                                b_acc,
-                                ((0, 0),
-                                 (0, b_d.shape[-1] - b_acc.shape[-1])))
-                        elif not trans and b_d.shape[0] != b_acc.shape[0]:
-                            b_acc_c = jnp.pad(
-                                b_acc,
-                                ((0, b_d.shape[0] - b_acc.shape[0]),
-                                 (0, 0)))
-                        b_acc = b_acc_c + b_d
-                n_eff = Pp_acc.shape[-1] if trans else Pp_acc.shape[0]
-                if contribs:
-                    # hybrid residual (exact-valued gather buckets),
-                    # accumulated in the packed layout
-                    from ..ops.gramian import packed_bucket_accum
-                    with jax.named_scope("residual"):
-                        Pp_r, b_r = packed_bucket_accum(
-                            contribs, n_eff, K, gram_dtype=gd)
-                        if trans:
-                            Pp_acc = Pp_acc + Pp_r.astype(Pp_acc.dtype).T
-                            b_acc = b_acc + b_r.astype(b_acc.dtype).T
-                        else:
-                            Pp_acc = Pp_acc + Pp_r.astype(Pp_acc.dtype)
-                            b_acc = b_acc + b_r.astype(b_acc.dtype)
-                xi = randoms[f"e{ei}.xi"]
-                if n_eff != es.n:
-                    xi = jnp.pad(xi, ((0, n_eff - es.n), (0, 0)))
-                U_new = chol_sample_packed_dispatch(
-                    Pp_acc, b_acc, xi, Lambda,
-                    cfg.chol_jitter, transposed=trans)
-                ent["U"] = U_new[:es.n] if U_new.shape[0] != es.n else U_new
-                ents[ei] = ent
-                metrics[f"e{ei}.unorm"] = jnp.linalg.norm(ent["U"])
-                if es.has_features:
-                    metrics[f"e{ei}.betanorm"] = jnp.linalg.norm(
-                        ent["beta"])
-                    metrics[f"e{ei}.lambda_beta"] = ent["lambda_beta"]
-                continue
             if cfg.accumulation == "planned":
                 P_acc, b_acc = assemble_precision_planned(
                     Lambda, prior_mean, contribs, es.n,
                     arrays["acc_plan"][f"e{ei}"], gram_dtype=gd)
-                lam_fused = None  # Lambda already in the accumulator
             else:
                 P_acc, b_acc = assemble_precision(
-                    Lambda, prior_mean, contribs, es.n, gram_dtype=gd,
-                    fuse_lambda=fuse)
-                lam_fused = Lambda if fuse else None
-            # dense-MXU contributions (ops/dense_gram.py): one canonical-
+                    Lambda, prior_mean, contribs, es.n, gram_dtype=gd)
+            # dense contributions (ops/dense_gram.py): one canonical-
             # tensor einsum per mode instead of the per-observation gather
             for alpha, partners, ri, mode, plan in dense_contribs:
                 with jax.named_scope(f"dense_r{ri}m{mode}"):
@@ -942,8 +768,7 @@ class MacauEngine(GibbsDriverMixin):
                     P_acc = P_acc + P_d
                     b_acc = b_acc + b_d
             ent["U"] = chol_sample_dispatch(cfg, P_acc, b_acc,
-                                            randoms[f"e{ei}.xi"],
-                                            Lambda=lam_fused)
+                                            randoms[f"e{ei}.xi"])
             ents[ei] = ent
             metrics[f"e{ei}.unorm"] = jnp.linalg.norm(ent["U"])
             if es.has_features:
@@ -999,34 +824,26 @@ class MacauEngine(GibbsDriverMixin):
         return new_state, metrics
 
     def _dense_mode_contrib(self, arrays, ri, mode, plan, partners,
-                            dtype, mdt, packed=False, transposed=False,
-                            keep_pad=False, alpha=None):
-        """One dense mode's (P, b): the M/W pair path (bf16 or s8 MXU)
-        or the single-array fused path (ops/dense_gram.fused_gram_contrib)
-        per the compile-time plan kind.  When ``alpha`` is given it is
-        FOLDED into the contribution (dequant scales on the s8 paths —
-        no [CK, N] alpha pass) for every kind; the caller must not
-        multiply again."""
+                            dtype, mdt, alpha=None):
+        """One dense mode's (P, b): the M/W pair path (bf16 or s8) or the
+        single-array fused path (ops/dense_gram.fused_gram_contrib) per
+        the compile-time plan kind.  When ``alpha`` is given it is FOLDED
+        into the contribution (dequant scales on the s8 paths) for every
+        kind; the caller must not multiply again."""
         st = arrays["dense"][f"r{ri}"]
         if plan.kind == "fused":
             s, m = self.problem.fused_rels[ri]
             rs = self.problem.rel_specs[ri]
-            rdims = tuple(self.problem.entity_specs[e].n
-                          for e in rs.entity_ids)
             if self.problem.fused_i8.get(ri):
                 from ..ops.dense_gram import fused_gram_contrib_i8
                 return fused_gram_contrib_i8(
                     st["V8"], partners[0], mode, dtype, s, m,
-                    rs.mean_value, packed=packed, transposed=transposed,
-                    dims=rdims, use_pallas=self.problem.fused_pallas,
-                    ridge_deg=st.get(f"deg_m{mode}"),
-                    keep_pad=keep_pad, alpha=alpha)
+                    rs.mean_value, ridge_deg=st.get(f"deg_m{mode}"),
+                    alpha=alpha)
             from ..ops.dense_gram import fused_gram_contrib
             P_f, b_f = fused_gram_contrib(
                 st["V8"], partners[0], mode, dtype, mdt, s, m,
-                rs.mean_value, packed=packed, transposed=transposed,
-                dims=rdims,
-                use_pallas=self.problem.fused_pallas)
+                rs.mean_value)
             if alpha is not None:
                 P_f, b_f = alpha * P_f, alpha * b_f
             return P_f, b_f
@@ -1034,11 +851,8 @@ class MacauEngine(GibbsDriverMixin):
         dims.insert(mode, plan.n_focus)
         return dense_gram_contrib(
             st["M"], st["W"], partners, mode, dims, dtype, mdt,
-            packed=packed, transposed=transposed,
             w_scale=self.problem.dense_w_scale.get(ri),
             ridge_deg=st.get(f"deg_m{mode}"),
-            quant_pallas=self.problem.fused_pallas,
-            store_dims=self.problem.pair_pad_dims.get(ri),
             alpha=alpha)
 
     def _sample_beta(self, arrays, ent, es: EntitySpec, ei: int, randoms):
@@ -1068,8 +882,8 @@ class MacauEngine(GibbsDriverMixin):
             # bf16 V operands are CATASTROPHIC for the beta draw — the
             # Woodbury final subtraction amplifies the ~4e-3 rounding to
             # ~1e-1 true relative residual (r2 session-4 measurement);
-            # TPU's default 1-pass-bf16 matmul does the same, hence
-            # Precision.HIGHEST.
+            # a reduced-precision default matmul (TF32 on the GPU) does
+            # the same, hence Precision.HIGHEST.
             hi = (jax.lax.Precision.HIGHEST
                   if dtype == jnp.float32 else None)
 
@@ -1250,8 +1064,7 @@ def auc_device(labels: jax.Array, scores: jax.Array,
     with the scores in one multi-operand ``lax.sort``, so no rank ever
     has to be scattered back.  The earlier two-sided ``searchsorted``
     formulation compiled to two 15-step binary-search while loops of
-    30k dynamic gathers each — ~6 ms/sweep at the ChEMBL test-set size,
-    vs ~0.1 ms for the scans (r2 trace, docs/ROUND2_NOTES.md).
+    30k dynamic gathers each at the ChEMBL test-set size.
 
     ``weights`` (0/1) excludes padding entries: padded rows must carry
     scores ABOVE every real score (e.g. +inf) so the real midranks are

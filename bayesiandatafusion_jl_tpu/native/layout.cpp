@@ -1,8 +1,8 @@
 // Native data-layer: degree-bucketed layout builder + sparse binary I/O.
 //
-// The TPU compute path is JAX/XLA/Pallas; this is the host-side runtime
+// The device compute path is JAX/XLA; this is the host-side runtime
 // tier (the reference's "data loading layer" — IndexedDF construction and
-// .sbm feature-file parsing, SURVEY.md §5.2/§6-IO).  For pod-scale inputs
+// .sbm feature-file parsing, SURVEY.md §5.2/§6-IO).  For Netflix-scale inputs
 // (1e8+ observations) the one-pass C++ builder keeps preprocessing off the
 // critical path; Python falls back to the vectorized NumPy builder when
 // this library isn't compiled.
@@ -156,7 +156,7 @@ int32_t bdf_read_sbm(const char* path, int64_t nnz,
 }
 
 // ---------------------------------------------------------------------------
-// Dense-pair accumulation for the MXU Gramian path (ops/dense_gram.py):
+// Dense-pair accumulation for the dense Gramian path (ops/dense_gram.py):
 // M[lin] += 1, W[lin] += centered[n] over flat f32 [total] arrays, with an
 // optional mode permutation applied per element.  One tight loop replaces
 // np.add.at's generic-ufunc inner loop (~35 s -> ~1 s at ML-10M).  The

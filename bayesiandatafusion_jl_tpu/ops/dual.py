@@ -18,21 +18,19 @@ sweep's beta draw into four matmuls and a diagonal scale:
 
 This is an EXACT direct solve (to floating-point roundoff), strictly
 tighter than CG's f32 tolerance floor (~1e-5), and it matches the NumPy
-oracle's dense ``np.linalg.solve`` at oracle-equivalence tolerance.  On
-v5e at the ChEMBL bench shape (15k x 32k ECFP) the per-sweep cost is
-~4 ms of MXU work vs ~21 preconditioned-CG iterations.
+oracle's dense ``np.linalg.solve`` at oracle-equivalence tolerance.  Per
+sweep it costs a few dense [N, N] x [N, K] matmuls instead of ~21
+preconditioned-CG iterations at the ChEMBL bench shape (15k x 32k ECFP).
 
-The one-time ``eigh`` runs on the HOST (scipy ``syevd``): XLA's TPU eigh
-is impractical at this size (measured 339 s at N=8192 and a compile-
-helper OOM at 15k on the r2 toolchain), while host f32 ``syevd`` at
-N=15k is ~160 s once per engine.  In f32 the eigh-based solve carries a
-backward error ~eps*kappa; iterative refinement (config ``dual_refine``,
-default 1) runs in the N-space dual system against the exact stored G
-(:func:`dual_solve_g`) and brings the measured true relative residual
-from 1.6e-4 to 1.6e-6 on the 15k x 32k ECFP system — below the CG f32
-floor (~1e-5).  All contractions run at Precision.HIGHEST: the final
-``rhs - X' z`` cancellation amplifies matmul rounding by ~|X'X|/lam, so
-bf16 operands (or the TPU default 1-pass-bf16 dot) would leave ~1e-1
+The one-time ``eigh`` runs on the HOST (scipy ``syevd``, ~160 s at N=15k
+once per engine, cached by ``dual_cache_dir``).  In f32 the eigh-based solve
+carries a backward error ~eps*kappa; iterative refinement (config
+``dual_refine``, default 1) runs in the N-space dual system against the
+exact stored G (:func:`dual_solve_g`) and brings the measured true relative
+residual from 1.6e-4 to 1.6e-6 on the 15k x 32k ECFP system — below the CG
+f32 floor (~1e-5).  All contractions run at Precision.HIGHEST: the final
+``rhs - X' z`` cancellation amplifies matmul rounding by ~|X'X|/lam, so bf16
+operands (or a reduced-precision default dot such as TF32) would leave ~1e-1
 true residual.
 """
 from __future__ import annotations
@@ -111,9 +109,9 @@ def dual_solve(Q: jax.Array, d: jax.Array, lam, rhs: jax.Array,
 
     All contractions run at Precision.HIGHEST: the final
     ``rhs - X' t2`` cancels almost completely along the data directions,
-    so matmul rounding is amplified by ~|X'X|/lam — the TPU default
-    1-pass-bf16 dot (or bf16 operands in the spmm) turns an exact solve
-    into ~1e-1 true relative residual (r2 session-4 measurement).
+    so matmul rounding is amplified by ~|X'X|/lam — a reduced-precision
+    default dot (or bf16 operands in the spmm) turns an exact solve into
+    ~1e-1 true relative residual (r2 session-4 measurement).
     """
     hi = jax.lax.Precision.HIGHEST
     t = spmm_fwd(rhs)                        # [N, K]

@@ -6,15 +6,12 @@ This is the hot kernel of the whole engine (reference: the per-row loop in
     P_i = Lambda + sum_r alpha_r * sum_{o in Omega_i^r} z_o z_o^T
     b_i = Lambda (mu + beta^T x_i) + sum_r alpha_r * sum_o (v_o - mean_r) z_o
 
-where z_o is the Hadamard product of the other modes' latent rows.  TPU
-formulation: for each fixed-width bucket, gather partner latents into a dense
-``[rows, W, K]`` block, form the batched Gramian with one MXU einsum, and
+where z_o is the Hadamard product of the other modes' latent rows.
+Formulation: for each fixed-width bucket, gather partner latents into a
+dense ``[rows, W, K]`` block, form the batched Gramian with one einsum, and
 scatter-add into dense ``[N, K, K]`` / ``[N, K]`` accumulators keyed by
 instance id.  Chunked head instances accumulate via the same scatter-add.
-
-A fused Pallas gather+Gramian kernel (kernels in ops/pallas_gramian.py) can
-replace the gather+einsum per bucket; this XLA path is the portable
-reference and the fallback.
+Relations dense enough for a matmul take ops/dense_gram.py instead.
 """
 from __future__ import annotations
 
@@ -25,13 +22,12 @@ import jax.numpy as jnp
 import numpy as np
 
 
-# Gathered-block transient budget: the [rows, W, K] partner gather pads
-# its K-minor dim to 128 lanes on TPU, so a 100M-nnz bucket set tiles to
-# ~20 GB > HBM ("the gather wall CANNOT RUN", r3).  Buckets whose gather
-# transient exceeds this are processed in ROW CHUNKS — each row's
-# W-reduction stays inside one chunk, so chunking is BIT-IDENTICAL to
-# the unchunked einsum (oracle equivalence preserved exactly).  4 GB
-# leaves every existing config (ML-10M: ~3.2 GB) on the one-shot path.
+# Gathered-block transient budget for the [rows, W, K] partner gather
+# (charged at its real minor dim K).  Buckets whose gather transient
+# exceeds this are processed in ROW CHUNKS — each row's W-reduction stays
+# inside one chunk, so chunking is BIT-IDENTICAL to the unchunked einsum
+# (oracle equivalence preserved exactly); only the number of chunks
+# depends on the budget.
 _GATHER_CHUNK_BYTES = 4e9
 
 
@@ -46,12 +42,11 @@ def bucket_gramian(
     """Per-row Gramian and rhs contribution of one bucket (without alpha).
 
     Returns (P [rows, K, K], b [rows, K]).  With ``gram_dtype=bfloat16``
-    the gathered partner rows move at half the HBM traffic and the MXU
-    contracts in bf16 with f32 accumulation (XLA CSEs the one-time factor
-    cast across buckets).  Buckets over the gather-transient budget run
-    chunked (see _GATHER_CHUNK_BYTES) — arbitrary-scale relations,
-    including arity >= 3 at 100M+ nnz, now RUN on this path instead of
-    exceeding HBM.
+    the gathered partner rows move at half the memory traffic and the
+    einsum contracts in bf16 with f32 accumulation (XLA CSEs the one-time
+    factor cast across buckets).  Buckets over the gather-transient budget
+    run chunked (see _GATHER_CHUNK_BYTES), so arbitrary-scale relations,
+    including arity >= 3 at 100M+ nnz, run on this path.
     """
     out_dtype = val.dtype
     if gram_dtype is not None:
@@ -61,20 +56,18 @@ def bucket_gramian(
     rows, W = val.shape
     K = partner_factors[0].shape[-1]
     itemsize = jnp.dtype(partner_factors[0].dtype).itemsize
-    lanes = -(-K // 128) * 128              # TPU minor-dim tile padding
-    transient = float(rows) * W * lanes * itemsize * len(partner_factors)
+    transient = float(rows) * W * K * itemsize * len(partner_factors)
 
     def fetch(U, p):
         # tiny partner tables (tensor CONTEXT dims, typically <= 32
-        # instances) select via a one-hot matmul instead of a gather —
-        # the second gather stream halved arity-3 throughput (r4 probe
-        # at tensor_big shapes: 5.61 -> 2.88 ns/obs).  A one-hot dot is
-        # an exact single-term selection, so values equal the gather's.
+        # instances) select via a one-hot matmul instead of a second
+        # gather stream.  A one-hot dot is an exact single-term
+        # selection, so values equal the gather's.
         if U.shape[0] <= 32:
             oh = jax.nn.one_hot(p, U.shape[0], dtype=U.dtype)
             return jnp.einsum("rwc,ck->rwk", oh, U)
-        # promise_in_bounds skips gather bounds checks (~10% on TPU);
-        # layout indices are validated at build time
+        # promise_in_bounds skips gather bounds checks; layout indices
+        # are validated at build time
         return U.at[p].get(mode="promise_in_bounds")
 
     def block(parts_b, val_b, mask_b):
@@ -121,16 +114,15 @@ def assemble_precision(
     contribs,                 # list of (alpha, partner_factors, bucket dict)
     n: int,
     gram_dtype=None,
-    fuse_lambda: bool = False,  # skip the [n,K,K] Lambda broadcast: the
-                                # Pallas sampler adds Lambda in-register
+    fuse_lambda: bool = False,  # leave Lambda out of P (the sampler adds
+                                # it: chol_sample_dispatch(Lambda=...))
 ) -> Tuple[jax.Array, jax.Array]:
     """P/b accumulators via ONE segment-sum over all buckets' rows.
 
     Concatenating every bucket's per-row Gramian contributions (across all
     relations/modes touching the entity) and reducing with a single
     ``segment_sum`` does one pass over the [N, K, K] output instead of one
-    scatter per bucket — ~4x less HBM traffic than ``.at[].add`` per
-    bucket on TPU (measured: 50ms vs 192ms for 250k rows -> 71k users).
+    scatter per bucket.
     """
     K = Lambda.shape[-1]
     P_rows, b_rows, inst_rows = [], [], []
@@ -147,9 +139,7 @@ def assemble_precision(
     b_acc = prior_mean @ Lambda
     if P_rows:
         inst = jnp.concatenate(inst_rows)
-        # scatter in 2D [rows, K*K] — XLA's TPU scatter handles the flat
-        # trailing dim ~2.9x faster than [rows, K, K] (measured 7.0 ms vs
-        # 19.95 ms at 88k rows -> 71k segments, K=32)
+        # scatter in 2D [rows, K*K]: one flat trailing dim
         P_flat = jnp.concatenate(
             [p.reshape(p.shape[0], K * K) for p in P_rows])
         P_acc = P_acc + jax.ops.segment_sum(
@@ -157,97 +147,6 @@ def assemble_precision(
         b_acc = b_acc + jax.ops.segment_sum(
             jnp.concatenate(b_rows), inst, num_segments=n)
     return P_acc, b_acc
-
-
-# Packed-residual transient budget, in bytes of the LARGER of the
-# per-bucket [rows, K, K] Gramian block and the [rows, W, 128-lane]
-# gather transient: a Netflix-scale residual (~228k rows x W=60 at
-# K=32) materializes ~3.5 GB of gathered partners + ~0.9 GB of P (x2
-# with the remat copy) IN ADDITION to the 8.6 GB V8 and the kernel
-# outputs — the first 1 GB P-only budget left the full-scale
-# netflix_dup 300 MB over HBM (r5 probe).  Rows over the budget
-# accumulate in CHUNKS, each segment-summed into the persistent [n, C]
-# accumulator.  Deterministic in (rows, W, K, dtypes) alone, so the
-# single-device and sharded engines chunk identically.
-_PACKED_CHUNK_BYTES = 5e8
-
-
-def packed_bucket_accum(contribs, n: int, K: int, gram_dtype=None):
-    """Packed-triangle accumulation of bucket contributions: (Pp [n, C],
-    b [n, K]) with C = K(K+1)/2.
-
-    Lets the packed fast path accept gather contributions — the hybrid
-    fused relations' exact-valued residual buckets (r4) — without
-    falling back to the full [n, K, K] accumulators (which at Netflix
-    scale adds ~6 GB of persistent arrays and OOMs next to the 8.6 GB
-    V8).  ``bucket_gramian``'s P is bitwise symmetric (commuting
-    products, same w-reduction), so taking the upper triangle is exact.
-    Buckets whose [rows, K, K] transient exceeds _PACKED_CHUNK_BYTES run
-    row-chunked (r5, VERDICT r4 missing #2: a NONZERO residual at
-    Netflix scale now fits next to V8; chunk-partials change f32
-    addition order vs the one-shot segment-sum, but the chunk rule is a
-    pure function of (rows, K) so both engines stay bitwise-identical
-    to each other, and small/f64 parity seams never chunk).
-    Returns (None, None) when ``contribs`` is empty.
-    """
-    if not contribs:
-        return None, None
-    iu, ju = np.triu_indices(K)
-    sel = jnp.asarray((iu * K + ju).astype(np.int32))
-    C = len(iu)
-    Pp = None
-    b_acc = None
-    for alpha, partner_factors, ba in contribs:
-        rows, W = ba["val"].shape
-        itemsize = jnp.dtype(ba["val"].dtype).itemsize
-        g_item = (jnp.dtype(gram_dtype).itemsize if gram_dtype is not None
-                  else jnp.dtype(partner_factors[0].dtype).itemsize)
-        lanes = -(-K // 128) * 128
-        per_row = max(K * K * itemsize,
-                      W * lanes * g_item * len(partner_factors))
-        n_chunks = max(1, min(int(np.ceil(
-            float(rows) * per_row / _PACKED_CHUNK_BYTES)), rows))
-        if n_chunks == 1:
-            P, b = bucket_gramian(partner_factors, ba["part"], ba["val"],
-                                  ba["mask"], gram_dtype=gram_dtype)
-            Pp_rows = jnp.take(P.reshape(rows, K * K), sel, axis=1)
-            segP = jax.ops.segment_sum(Pp_rows, ba["inst"],
-                                       num_segments=n)
-            segb = jax.ops.segment_sum(b, ba["inst"], num_segments=n)
-        else:
-            cr = -(-rows // n_chunks)
-            full = rows // cr
-            rem = rows - full * cr
-            dt = ba["val"].dtype
-
-            def step(start, size, acc):
-                sP, sb = acc
-                parts_b = [jax.lax.dynamic_slice_in_dim(p, start, size, 0)
-                           for p in ba["part"]]
-                val_b = jax.lax.dynamic_slice_in_dim(
-                    ba["val"], start, size, 0)
-                mask_b = jax.lax.dynamic_slice_in_dim(
-                    ba["mask"], start, size, 0)
-                inst_b = jax.lax.dynamic_slice_in_dim(
-                    ba["inst"], start, size, 0)
-                P, b = bucket_gramian(partner_factors, parts_b, val_b,
-                                      mask_b, gram_dtype=gram_dtype)
-                Pp_rows = jnp.take(P.reshape(size, K * K), sel, axis=1)
-                return (sP + jax.ops.segment_sum(Pp_rows, inst_b,
-                                                 num_segments=n),
-                        sb + jax.ops.segment_sum(b, inst_b,
-                                                 num_segments=n))
-
-            acc = (jnp.zeros((n, C), dt), jnp.zeros((n, K), dt))
-            if full:
-                acc = jax.lax.fori_loop(
-                    0, full, lambda i, a: step(i * cr, cr, a), acc)
-            if rem:
-                acc = step(full * cr, rem, acc)
-            segP, segb = acc
-        Pp = alpha * segP if Pp is None else Pp + alpha * segP
-        b_acc = alpha * segb if b_acc is None else b_acc + alpha * segb
-    return Pp, b_acc
 
 
 def plan_accumulation(inst_arrays: Sequence[np.ndarray], n: int):
@@ -258,7 +157,7 @@ def plan_accumulation(inst_arrays: Sequence[np.ndarray], n: int):
     degree exceeds the widest bucket.  So the [rows]->[n] reduction is a
     static-index gather of each instance's first row plus a tiny overflow
     segment-sum, instead of a general scatter over all rows (XLA's scatter
-    ran at ~10 GB/s; the gather formulation is bandwidth-bound).
+    is the slower primitive; the gather formulation is bandwidth-bound).
 
     Returns dict of numpy arrays: first [n] int32 (concat-row id of the
     first contributing row; 0 if none), has [n] float (0/1), ov_rows
@@ -337,9 +236,9 @@ def predict_tuples(
 ) -> jax.Array:
     """pred = mean_r + sum_k prod_d U_d[i_d, k]  (SURVEY §4.7).
 
-    Expressed as one einsum over the gathered operands: XLA then fuses the
-    gathers into the contraction (19x faster on TPU than gather-then-
-    multiply-then-sum, which materializes the gathered rows).
+    Expressed as one einsum over the gathered operands, so XLA can fuse
+    the gathers into the contraction instead of materializing the
+    gathered rows.
     """
     gathered = [U.at[idx[:, d]].get(mode="promise_in_bounds")
                 for d, U in enumerate(factors)]

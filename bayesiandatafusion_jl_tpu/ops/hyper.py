@@ -2,7 +2,7 @@
 
 Reference: ``ConditionalNormalWishart`` and the scalar Gamma updates in
 src/macau.jl [MED]; exact math in SURVEY.md §4.3/§4.5.  Wishart sampling is
-done TPU-natively via the Bartlett decomposition (SURVEY §9.2): no
+done on the device via the Bartlett decomposition (SURVEY §9.2): no
 Distributions.jl — a KxK triangular construction from chi-square (Gamma)
 diagonals and standard-normal strict-lower entries.
 

@@ -1,14 +1,14 @@
-"""Degree-bucketed observation layout (the TPU replacement for IndexedDF).
+"""Degree-bucketed observation layout (the device replacement for IndexedDF).
 
 The reference gathers each instance's observations through a per-instance
 inverted index (``IndexedDF.index[mode][i] -> row ids``; src/IndexedDF.jl
-[MED], SURVEY.md §3) — a ragged, pointer-chasing structure.  On TPU we
-re-layout once at compile time (SURVEY §9.0): for each (relation, mode) the
-observations are grouped by instance, degree-sorted, and packed into a small
-set of dense blocks ("buckets") of fixed width.  Instances whose degree
-exceeds the widest bucket are *chunked* into several rows that scatter-add
-into the same accumulator row — this is the skew handling for head entities
-(SURVEY §7.7 / §9.2).
+[MED], SURVEY.md §3) — a ragged, pointer-chasing structure.  On the device
+we re-layout once at compile time (SURVEY §9.0): for each (relation, mode)
+the observations are grouped by instance, degree-sorted, and packed into a
+small set of dense blocks ("buckets") of fixed width.  Instances whose
+degree exceeds the widest bucket are *chunked* into several rows that
+scatter-add into the same accumulator row — this is the skew handling for
+head entities (SURVEY §7.7 / §9.2).
 
 Every array here is static-shaped, so the whole Gibbs sweep jit-compiles
 once with zero retracing.
@@ -74,8 +74,8 @@ def build_mode_layout(
     """Pack one relation's observations for sampling ``mode``'s entity.
 
     Dispatches to the C++ builder (native/layout.cpp) when compiled and the
-    target dtype is float32 (the TPU path); otherwise the vectorized NumPy
-    implementation below.  Both produce identical layouts (same piece
+    target dtype is float32 (the production path); otherwise the vectorized
+    NumPy implementation below.  Both produce identical layouts (same piece
     order, same CSR observation order) — pinned by tests/test_layout.py.
     """
     if use_native and np.dtype(dtype) == np.float32:

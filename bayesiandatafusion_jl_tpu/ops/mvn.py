@@ -5,14 +5,12 @@ Reference: the per-row ``chol(P) \\ ...`` inside ``sample_user``
 
     u_i <- mu* + L^{-T} xi,   P_i = L L^T,  mu* = P_i^{-1} b_i,  xi ~ N(0, I)
 
-TPU formulation: one batched ``[N, K, K]`` Cholesky + batched triangular
-solves (XLA lowers these to the MXU-friendly blocked routines).  The
+Formulation: one batched ``[N, K, K]`` Cholesky + batched triangular
+solves (XLA hands these to the GPU solver libraries).  The
 covariance of ``L^{-T} xi`` is ``P^{-1}`` — exact MVN sampling without ever
 forming the covariance.
 """
 from __future__ import annotations
-
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -39,52 +37,12 @@ def chol_sample(P: jax.Array, b: jax.Array, xi: jax.Array,
     return (mu + u)[..., 0]
 
 
-def use_pallas_chol(cfg) -> bool:
-    """Pallas fused sampler eligibility (ops/pallas_chol.py): TPU backend,
-    f32, K within a compilable kernel.
-
-    K <= 32 uses the fully-unrolled batch-on-lanes kernel; 32 < K <= 96
-    the column-slab kernel (measured r2: 95x faster than the XLA path at
-    K=48/64, 67x at K=96 for 82k matrices); 96 < K <= 128 the blocked
-    panel path (chol_sample_blocked: Pallas factor+inverse on 64-wide
-    diagonal panels, MXU batched matmuls for everything else — the plain
-    slab kernel's ~8.5k unrolled statements overflow the Mosaic compile
-    helper at K=128, and a masked-fori alternative measured ~100x slower
-    than the slab; r2 probes, docs/ROUND2_NOTES.md).  K > 128 falls back
-    to XLA (chunk the batch if it OOMs).
-    """
-    if cfg.pallas == "off":
-        return False
-    if cfg.pallas == "on":
-        return True
-    return (jax.default_backend() not in ("cpu",)
-            and cfg.dtype == "float32" and cfg.num_latent <= 128)
-
-
 def chol_sample_dispatch(cfg, P: jax.Array, b: jax.Array, xi: jax.Array,
                          Lambda: jax.Array | None = None) -> jax.Array:
-    """Fused sampler dispatch; when ``Lambda`` is given it is added to
-    every P_i (in-register on the K<=32 Pallas path — no [N,K,K] HBM
-    pass; via one XLA broadcast-add on the slab/XLA paths)."""
-    K = P.shape[-1]
-    if use_pallas_chol(cfg):
-        if K <= 32:
-            # The slab kernel beats this one STANDALONE at K=32 (5.6 vs
-            # 7.2 ms for 82k), but measured 1 ms SLOWER inside the real
-            # ML-10M sweep (4.02M vs 4.20M rows/s, r2 session 4) — the
-            # in-register Lambda fusion saves an [N,K,K] HBM pass that
-            # the isolated probe does not account for.  Keep unrolled.
-            from .pallas_chol import chol_sample_pallas
-            return chol_sample_pallas(P, b, xi, cfg.chol_jitter,
-                                      Lambda=Lambda)
-        if Lambda is not None:
-            P = P + Lambda
-        if K <= 96:
-            from .pallas_chol import chol_sample_pallas_tiled
-            return chol_sample_pallas_tiled(P, b, xi, cfg.chol_jitter,
-                                            tile=1024)
-        from .pallas_chol import chol_sample_blocked
-        return chol_sample_blocked(P, b, xi, cfg.chol_jitter)
+    """The engines' sampler entry point: when ``Lambda`` is given it is
+    added to every P_i first (the head-split accumulators leave it out so
+    the ghost rows can be psum-reduced without it), then
+    :func:`chol_sample` with the configured jitter."""
     if Lambda is not None:
         P = P + Lambda
     return chol_sample(P, b, xi, cfg.chol_jitter)

@@ -45,9 +45,8 @@ def resolve_nystrom_rank(cfg_rank, num_features: int) -> int:
     """Resolve MacauConfig.cg_nystrom_rank: None = auto (rank 1024 for
     F >= 16384, rank 512 for F >= 8192 — at the ChEMBL bench shape,
     15k x 32k ECFP with int8 slabs, rank 1024 cuts CG 32 -> 21 iterations
-    and the sweep 61.3 -> 46.3 ms; rank 512 gives 24 iters / 47.9 ms),
-    0 = off, int = that rank.  Callers additionally skip the build when
-    F < 4x the rank."""
+    and rank 512 to 24), 0 = off, int = that rank.  Callers additionally
+    skip the build when F < 4x the rank."""
     if cfg_rank is not None:
         return int(cfg_rank)
     if num_features >= 16384:

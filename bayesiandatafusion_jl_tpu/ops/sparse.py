@@ -1,10 +1,10 @@
-"""Sparse binary feature matrices and their TPU matvec path.
+"""Sparse binary feature matrices and their device matvec path.
 
 Reference counterpart: ``SparseBinMatrix`` (Int32 row/col COO arrays with
 allocation-free ``A_mul_B!``/``At_mul_B!``) and its worker-distributed
 ``ParallelSBM`` — src/sparsebinmatrix.jl [MED], SURVEY.md §3/§5.3.
 
-TPU design: the matvec is a gather + segment-sum over the nnz axis —
+Design: the matvec is a gather + segment-sum over the nnz axis —
 ``(X v)[i] = sum_{n: row_n = i} v[col_n]`` (binary X means no multiplies).
 Rows are kept sorted by row index so XLA can use the sorted-segment path.
 The multi-device equivalent of ParallelSBM shards the nnz axis and psums

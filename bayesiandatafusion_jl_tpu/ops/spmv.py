@@ -1,11 +1,10 @@
 """Bucketed sparse-binary matvec for the side-information matrix.
 
 The CG link-matrix solve (SURVEY §4.4) is dominated by the matvec
-``w = X'(X v) + lambda v`` on the sparse binary feature matrix.  Plain
-segment-sums over the nnz axis run at ~12 GB/s effective on TPU (XLA
-scatter); re-using the degree-bucketed layout machinery (ops/layout.py)
-turns each product into gather + masked einsum + a SMALL row-level
-segment-sum — ~5x faster at ChEMBL shapes (600k nnz).
+``w = X'(X v) + lambda v`` on the sparse binary feature matrix.  Instead
+of plain segment-sums over the whole nnz axis (a scatter per nnz),
+re-using the degree-bucketed layout machinery (ops/layout.py) turns each
+product into gather + masked einsum + a SMALL row-level segment-sum.
 
 Reference counterpart: ``A_mul_B!`` / ``At_mul_B!`` on SparseBinMatrix
 (src/sparsebinmatrix.jl [MED]).

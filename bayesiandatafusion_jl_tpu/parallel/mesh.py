@@ -1,11 +1,12 @@
 """Device mesh + multi-host initialization helpers.
 
 Reference counterpart: Julia ``Distributed`` TCP master/worker setup
-(SURVEY.md §7.8).  TPU-native replacement: one process per host via
-``jax.distributed.initialize``, a single 1-D mesh ``('d',)`` over all chips
-(entity instances hash-partition over it; the latent dim K stays
-replicated — SURVEY §9.0), collectives ride ICI within a slice and DCN
-across slices.
+(SURVEY.md §7.8).  Here: one process per host via
+``jax.distributed.initialize``, a single 1-D mesh ``('d',)`` over all
+devices (entity instances hash-partition over it; the latent dim K stays
+replicated — SURVEY §9.0).  The mesh follows the algorithm alone: the
+GPUs of one host reach each other all to all over NVLink, and XLA hands
+the collectives to NCCL.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Multi-host bring-up (no-op on a single process).
 
-    On a pod slice, call once per host before building the engine; JAX
-    wires the ICI/DCN topology and `jax.devices()` becomes global.
+    On a multi-host cluster, call once per host before building the
+    engine; `jax.devices()` then becomes global.
     """
     if num_processes is None or num_processes <= 1:
         return

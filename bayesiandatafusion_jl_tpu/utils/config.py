@@ -18,7 +18,7 @@ class MacauConfig:
     """Engine configuration.
 
     Mirrors ``macau(rd; num_latent, burnin, psamples, clamp, verbose, ...)``
-    from the reference (src/macau.jl, SURVEY.md §4.6) plus TPU-layout knobs
+    from the reference (src/macau.jl, SURVEY.md §4.6) plus device-layout knobs
     that have no reference counterpart.
     """
 
@@ -52,29 +52,27 @@ class MacauConfig:
     # --- numerics ---
     dtype: str = "float32"      # compute dtype ("float64" for CPU oracle-equivalence)
     chol_jitter: float = 0.0    # added to diag of per-row precision before Cholesky
-    # Pallas kernels: "auto" = on TPU for f32 and K<=128 (K<=32 unrolled
-    # fused Cholesky sampler — packed-triangle variant on all-dense
-    # entities; 32<K<=96 column-slab kernel; 96<K<=128 blocked panel
-    # path; ops/mvn.py use_pallas_chol); "on"/"off" force
-    pallas: str = "auto"
     # Gramian gather/contraction dtype: None = compute dtype; "bfloat16"
     # halves gather HBM traffic (accumulation stays f32)
     gram_dtype: Optional[str] = None
-    # Dense-MXU Gramian (ops/dense_gram.py): replace the per-observation
-    # gather with M @ Y matmuls on relations dense enough that the MXU
-    # wins (> ~1/500 observed density).  None = auto heuristic (measured
-    # machine constants; only fires at nnz >= 50k), False = never,
+    # Dense Gramian (ops/dense_gram.py): replace the per-observation
+    # gather with M @ Y matmuls on relations dense enough that the matmul
+    # wins.  None = auto heuristic (measured machine constants in
+    # ops/dense_gram.py; only fires at nnz >= 50k), False = never,
     # True = wherever memory allows.
     dense_gram: Optional[bool] = None
-    # HBM allowance for dense M/W pairs.  Sized so the sharded engine's
-    # per-mode pairs fit at ML-10M scale (2 x 3.06 GB bf16); modes that
-    # do not fit fall back to the gather path (logged to stderr).
+    # Device-memory allowance for dense M/W pairs.  A setting, not a
+    # measurement of the device: it fixes which path each relation takes
+    # (the sharded engine's per-mode pairs fit at ML-10M scale, 2 x 3.06
+    # GB bf16; Netflix-shaped pairs do not and take the fused path);
+    # modes that do not fit fall back to the gather path (logged to
+    # stderr).
     dense_gram_budget_gb: float = 9.0
-    # s8 MXU path for dense modes: store M/W as int8 (exact counts;
+    # s8 path for dense modes: store M/W as int8 (exact counts;
     # statically-scaled values) and quantize Y/V per sweep with
     # per-output-column scales (ops/dense_gram.quantize_dense_pair).
     # The largest partner axis contracts as an exact s8xs8->int32 dot
-    # (~1.45x the bf16 MXU rate, half the HBM stream); tensor relations
+    # (half the bf16 operand bytes); tensor relations
     # finish the remaining small axes in f32.  Quantization noise is the
     # same order as gram_dtype="bfloat16"'s rounding.  The gather path is
     # unaffected.
@@ -83,14 +81,13 @@ class MacauConfig:
     # for arity-2 relations whose values sit on an exact small-integer
     # grid (ratings, binary labels) and whose M/W pair exceeds the HBM
     # budget, store ONE int8 value matrix and derive the observation mask
-    # on the fly inside the chunked MXU contraction — half the pair's
+    # on the fly inside the chunked contraction — half the pair's
     # footprint, exact values.  None = auto (engage exactly when the pair
     # path cannot fit but the single array can — the Netflix-shaped
     # sparse regime), False = never, True = wherever encodable
     # (test/ablation knob).  With dense_int8=True the fused contraction
     # additionally quantizes the per-sweep partner operands to int8
-    # (fused_gram_contrib_i8: exact int32 dots at the s8 MXU rate — 163
-    # vs 109 TOP/s at Netflix scale, r3 probe — same per-column-scale
+    # (fused_gram_contrib_i8: exact int32 dots, same per-column-scale
     # scheme and PD safety ridge as the pair path); without it the
     # partner operands stay in gram_dtype and the path is quantization-
     # free.
@@ -114,7 +111,9 @@ class MacauConfig:
     # fits dual_budget_gb — ops/dual.py; else blocked CG), or force
     # "cg" / "dual".
     beta_solver: Optional[str] = None
-    dual_budget_gb: float = 4.0  # HBM allowance for the [N, N] Q + G pair
+    # device-memory allowance for the [N, N] Q + G pair (a setting that
+    # fixes the solver choice, not a measurement of the device)
+    dual_budget_gb: float = 4.0
     # Directory for caching the one-time XX' eigendecomposition (~270 s
     # host eigh at N=15k) keyed by a content hash of the feature matrix;
     # None = recompute every engine build
@@ -128,14 +127,14 @@ class MacauConfig:
     # Nystrom-preconditioned CG (ops/precond.py): rank of the one-time
     # randomized X'X factorization.  None (default) = auto: rank 512 when
     # the CG path runs with F >= 8192 (ChEMBL bench shape: 32 -> 21
-    # iterations, 61.3 -> 46.3 ms/sweep on v5e; the one-time host build
-    # is seconds).  0 = plain Jacobi.  Auto-skipped when F < 4x the rank.
+    # iterations; the one-time host build is seconds).  0 = plain Jacobi.
+    # Auto-skipped when F < 4x the rank.
     cg_nystrom_rank: Optional[int] = None
 
-    # --- TPU layout (no reference counterpart; SURVEY §9.0) ---
+    # --- device layout (no reference counterpart; SURVEY §9.0) ---
     bucket_widths: Sequence[int] = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
-    # Gramian-row accumulation: "segment" = one 2D-flat segment_sum (best
-    # on TPU); "planned" = static first-row gather + overflow
+    # Gramian-row accumulation: "segment" = one 2D-flat segment_sum;
+    # "planned" = static first-row gather + overflow
     # (see ops/gramian.py)
     accumulation: str = "segment"
     # sharded engine: sample/exchange the local shard in this many chunks so
@@ -150,7 +149,7 @@ class MacauConfig:
     # dominates a device's average gather work
     # (parallel.sharded.resolve_head_split); None = off; int = explicit.
     head_split_degree: Union[int, str, None] = "auto"
-    row_pad: int = 8  # pad bucket rows to a multiple of this (f32 sublane)
+    row_pad: int = 8  # pad bucket rows to a multiple of this
 
     # Fetch per-sweep metrics to host every N sweeps (1 = every sweep,
     # the reference behavior). On high-latency device links each fetch
@@ -178,9 +177,6 @@ class MacauConfig:
 
     def __post_init__(self):
         if self.accumulation not in ("segment", "planned"):
-            # "window" (r1's Pallas one-hot experiment) was removed in r2:
-            # the 2D-flat segment_sum beats it (7.0 vs 10.4 ms standalone)
-            # with none of the ~160 MB/mode plan-array cost
             raise ValueError(f"unknown accumulation {self.accumulation!r}")
 
     def np_dtype(self):

@@ -3,9 +3,9 @@
 This is the test-strategy oracle from SURVEY.md §9.5 — a slow, obviously
 correct, per-row-loop implementation of the algorithmic contract in SURVEY §4
 (BPMF: Salakhutdinov & Mnih ICML'08; Macau: Simm et al. MLSP'17).  It stands
-in for the unreachable Julia reference runtime: the TPU engine must reproduce
-its per-sweep factor updates to float64 tolerance when both consume the SAME
-injected randoms pytree (utils/rng.py draw_all_numpy).
+in for the unreachable Julia reference runtime: the device engine must
+reproduce its per-sweep factor updates to float64 tolerance when both
+consume the SAME injected randoms pytree (utils/rng.py draw_all_numpy).
 
 It deliberately shares no code with the engine: gathers go through the
 IndexedDF inverted index per row, solves are dense scipy — a genuine

@@ -325,14 +325,19 @@ def test_dense_int8_close_to_f32():
 
 
 def test_dense_plan_fires_at_high_rank():
-    """The auto dense-plan gather estimate scales ~K^2: at ML-10M shape the
-    dense path must be chosen at K=96 as well as K=32 (at K=96 the gather
-    path measured 4.6x slower than FLOP scaling when the plan declined)."""
-    from bayesiandatafusion_jl_tpu.ops.dense_gram import plan_dense_modes
-    shape, nnz = (71567, 10681), 10_000_054
+    """The auto dense-plan gather estimate scales ~K^2 like the dense
+    contraction's packed triangle, so a relation dense enough for the
+    dense path at K=32 keeps it at K=96 (fusion-graph IC50 shape, 20%
+    observed); tiny problems stay on the gather path."""
+    from bayesiandatafusion_jl_tpu.ops.dense_gram import (estimate_times,
+                                                          plan_dense_modes)
+    shape, nnz = (50_000, 500), 4_900_000
     for K in (32, 96):
         plans, _, _ = plan_dense_modes([shape], [nnz], K, None, 9e9, 2)
         assert (0, 0) in plans and (0, 1) in plans, (K, plans.keys())
+    g32 = estimate_times(shape[0], shape[1], nnz, 32, 1)[1]
+    g96 = estimate_times(shape[0], shape[1], nnz, 96, 1)[1]
+    assert abs(g96 / g32 - 9.0) < 1e-9
     # tiny problems still stay on the gather path (test-suite seam)
     plans, _, _ = plan_dense_modes([(50, 40)], [1000], 32, None, 9e9, 2)
     assert not plans

@@ -157,9 +157,7 @@ def test_plan_full_grid_zero_code_residual():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("focus_axis", [0, 1])
-@pytest.mark.parametrize("packed,transposed",
-                         [(False, False), (True, False), (True, True)])
-def test_fused_contrib_matches_direct(focus_axis, packed, transposed):
+def test_fused_contrib_matches_direct(focus_axis):
     rng = np.random.default_rng(4 + focus_axis)
     n0, n1, K = 37, 23, 4
     nnz = 300
@@ -174,8 +172,7 @@ def test_fused_contrib_matches_direct(focus_axis, packed, transposed):
 
     P, b = dg.fused_gram_contrib(
         jnp.asarray(V8), jnp.asarray(U), focus_axis,
-        jnp.float64, jnp.float64, s, m, mean,
-        packed=packed, transposed=transposed, row_chunks=5)
+        jnp.float64, jnp.float64, s, m, mean, row_chunks=5)
     P, b = np.asarray(P), np.asarray(b)
 
     # direct reference
@@ -187,19 +184,9 @@ def test_fused_contrib_matches_direct(focus_axis, packed, transposed):
         M, W = M.T, W.T
     P_want = np.einsum("ap,pk,pl->akl", M, U, U)
     b_want = W @ U
-    if packed:
-        iu, ju = np.triu_indices(K)
-        Pt_want = P_want[:, iu, ju]
-        if transposed:
-            np.testing.assert_allclose(P, Pt_want.T, rtol=1e-10, atol=1e-10)
-            np.testing.assert_allclose(b, b_want.T, rtol=1e-9, atol=1e-9)
-        else:
-            np.testing.assert_allclose(P, Pt_want, rtol=1e-10, atol=1e-10)
-            np.testing.assert_allclose(b, b_want, rtol=1e-9, atol=1e-9)
-    else:
-        assert P.shape == (n_focus, K, K)
-        np.testing.assert_allclose(P, P_want, rtol=1e-10, atol=1e-10)
-        np.testing.assert_allclose(b, b_want, rtol=1e-9, atol=1e-9)
+    assert P.shape == (n_focus, K, K)
+    np.testing.assert_allclose(P, P_want, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(b, b_want, rtol=1e-9, atol=1e-9)
 
 
 def test_fused_contrib_chunk_count_invariance():
@@ -220,140 +207,9 @@ def test_fused_contrib_chunk_count_invariance():
         np.testing.assert_allclose(o, outs[0], rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("focus_axis", [0, 1])
-def test_fused_pair_pallas_matches_numpy(focus_axis, monkeypatch):
-    """The Pallas masked-pair kernel (both orientations from one stored
-    layout) in interpret mode vs direct numpy."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    from bayesiandatafusion_jl_tpu.ops.pallas_fused import fused_pair_pallas
-
-    rng = np.random.default_rng(31 + focus_axis)
-    n0, n1, CK, K = 64, 256, 21, 5
-    V8 = np.where(rng.random((n0, n1)) < 0.1,
-                  rng.integers(1, 6, (n0, n1)), 0).astype(np.int8)
-    nc = n1 if focus_axis == 0 else n0
-    YZ = rng.standard_normal((nc, CK)).astype(np.float32)
-    Z = rng.standard_normal((nc, K)).astype(np.float32)
-    PM, BV = fused_pair_pallas(jnp.asarray(V8), jnp.asarray(YZ),
-                               jnp.asarray(Z), focus_axis)
-    M = (V8 != 0).astype(np.float32)
-    W = V8.astype(np.float32)
-    if focus_axis == 1:
-        M, W = M.T, W.T
-    np.testing.assert_allclose(np.asarray(PM), M @ YZ, rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(BV), W @ Z, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("focus_axis", [0, 1])
-def test_fused_pair_pallas_flip_out(focus_axis, monkeypatch):
-    """flip_out emits the kernel layout [CK, n_focus] with values equal
-    to the natural orientation's transpose — float and exact-int8 modes
-    (the latter bit for bit)."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    from bayesiandatafusion_jl_tpu.ops.pallas_fused import fused_pair_pallas
-
-    rng = np.random.default_rng(37 + focus_axis)
-    n0, n1, CK, K = 64, 256, 21, 5
-    V8 = np.where(rng.random((n0, n1)) < 0.1,
-                  rng.integers(1, 6, (n0, n1)), 0).astype(np.int8)
-    nc = n1 if focus_axis == 0 else n0
-    YZ = rng.standard_normal((nc, CK)).astype(np.float32)
-    Z = rng.standard_normal((nc, K)).astype(np.float32)
-    PM, BV = fused_pair_pallas(jnp.asarray(V8), jnp.asarray(YZ),
-                               jnp.asarray(Z), focus_axis)
-    PMt, BVt = fused_pair_pallas(jnp.asarray(V8), jnp.asarray(YZ),
-                                 jnp.asarray(Z), focus_axis,
-                                 flip_out=True)
-    # float path: the compiler may fold the in-kernel transpose into the
-    # dot (different f32 reduction order) — tolerance, not bitwise
-    np.testing.assert_allclose(np.asarray(PMt), np.asarray(PM).T,
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(BVt), np.asarray(BV).T,
-                               rtol=1e-5, atol=1e-5)
-    YZ8 = rng.integers(-127, 128, (nc, CK)).astype(np.int8)
-    Z8 = rng.integers(-127, 128, (nc, K)).astype(np.int8)
-    PM8, BV8 = fused_pair_pallas(jnp.asarray(V8), jnp.asarray(YZ8),
-                                 jnp.asarray(Z8), focus_axis)
-    PM8t, BV8t = fused_pair_pallas(jnp.asarray(V8), jnp.asarray(YZ8),
-                                   jnp.asarray(Z8), focus_axis,
-                                   flip_out=True)
-    np.testing.assert_array_equal(np.asarray(PM8t), np.asarray(PM8).T)
-    np.testing.assert_array_equal(np.asarray(BV8t), np.asarray(BV8).T)
-
-
-def test_fused_i8_flip_finish_matches(monkeypatch):
-    """fused_gram_contrib_i8 with (packed, transposed) through the
-    flip_out kernel must equal the fallback's transposed finish exactly
-    (same int32 sums, same dequant) — interpret mode."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    rng = np.random.default_rng(67)
-    n0, n1, K = 64, 256, 4
-    lin = rng.choice(n0 * n1, 900, replace=False)
-    idx = np.stack([lin // n1, lin % n1], 1)
-    vals = rng.integers(1, 6, 900).astype(np.float64)
-    mean = float(vals.mean())
-    s, m = dg.fused_pair_encode(idx, vals, (n0, n1))
-    V8 = dg.build_fused_values(idx, vals, (n0, n1), s, m)
-    for focus_axis in (0, 1):
-        n_partner = n1 if focus_axis == 0 else n0
-        U = rng.standard_normal((n_partner, K))
-        outs = []
-        for up in (True, False):
-            Pt, bt = dg.fused_gram_contrib_i8(
-                jnp.asarray(V8), jnp.asarray(U), focus_axis,
-                jnp.float32, s, m, mean, packed=True, transposed=True,
-                use_pallas=up)
-            outs.append((np.asarray(Pt), np.asarray(bt)))
-        np.testing.assert_array_equal(outs[0][0], outs[1][0])
-        np.testing.assert_array_equal(outs[0][1], outs[1][1])
-
-
-def test_ytab_kernel_bitwise(monkeypatch):
-    """The fused triangle-quantize kernel must equal the XLA
-    _quantize_cols path BIT FOR BIT (same products, same exact f32 max,
-    same round/clip) — including n_valid masking and internal row
-    padding."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    from bayesiandatafusion_jl_tpu.ops.pallas_ytab import \
-        ytab_quantize_pallas
-
-    rng = np.random.default_rng(91)
-    for K, n, nv in [(4, 37, None), (8, 40, 29), (32, 130, None),
-                     (32, 130, 100)]:
-        U = jnp.asarray(rng.standard_normal((n, K)).astype(np.float32))
-        YZ8, s = ytab_quantize_pallas(U, nv)
-        YZr, _Z, sr, _sz = dg.fused_quantize(U, nv, use_pallas=False)
-        np.testing.assert_array_equal(np.asarray(YZ8), np.asarray(YZr))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(sr))
-        # out_rows pad fold: same rows + exact-zero pads, same scales
-        YZ8p, sp = ytab_quantize_pallas(U, nv, out_rows=n + 37)
-        assert YZ8p.shape[0] == n + 37
-        np.testing.assert_array_equal(np.asarray(YZ8p[:n]), np.asarray(YZr))
-        assert not np.asarray(YZ8p[n:]).any()
-        np.testing.assert_array_equal(np.asarray(sp), np.asarray(sr))
-
-
 def test_device_build_chunked_matches_host(monkeypatch):
-    """The chunked device scatter (TPU index-pad workaround) must equal the
-    host build bit-for-bit, including OOB-dropped pad entries and the
-    smaller tail chunk."""
+    """The chunked device scatter must equal the host build bit-for-bit,
+    including OOB-dropped pad entries and the smaller tail chunk."""
     rng = np.random.default_rng(9)
     n0, n1 = 701, 37                    # odd sizes; prime row count
     lin = rng.choice(n0 * n1, 4000, replace=False)
@@ -367,14 +223,13 @@ def test_device_build_chunked_matches_host(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# fused s8 MXU variant (fused_gram_contrib_i8 + contract/finish split)
+# fused s8 variant (fused_gram_contrib_i8 + contract/finish split)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("focus_axis", [0, 1])
 def test_fused_i8_contrib_close_to_exact(focus_axis):
     """The quantized path must track the exact fused contraction within
-    the per-column quantization step (|Y| <= 127 steps per column), and
-    its packed/transposed output conventions must be self-consistent."""
+    the per-column quantization step (|Y| <= 127 steps per column)."""
     rng = np.random.default_rng(51 + focus_axis)
     n0, n1, K = 37, 23, 4
     idx = _coo(rng, n0, n1, 300)
@@ -398,150 +253,95 @@ def test_fused_i8_contrib_close_to_exact(focus_axis):
     bs = float(np.max(np.abs(np.asarray(b))))
     np.testing.assert_allclose(np.asarray(b8), np.asarray(b),
                                atol=0.02 * bs)
-    Pp, bp = dg.fused_gram_contrib_i8(
-        jnp.asarray(V8), jnp.asarray(U), focus_axis,
-        jnp.float64, s, m, mean, packed=True)
-    Pt, bt = dg.fused_gram_contrib_i8(
-        jnp.asarray(V8), jnp.asarray(U), focus_axis,
-        jnp.float64, s, m, mean, packed=True, transposed=True)
-    np.testing.assert_array_equal(np.asarray(Pp).T, np.asarray(Pt))
-    np.testing.assert_array_equal(np.asarray(bp).T, np.asarray(bt))
 
 
+@pytest.mark.parametrize("row_chunks", [1, 7, 64])
 @pytest.mark.parametrize("focus_axis", [0, 1])
-def test_fused_i8_pallas_bitwise_equals_fallback(focus_axis, monkeypatch):
-    """int32 sums are exact whatever the accumulation order: the Pallas
-    s8 kernel (interpret mode) and the chunked XLA fallback must agree
-    BIT FOR BIT — the property the sharded engine's raw-int32 psum relies
-    on for cross-engine parity."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-
+def test_fused_pair_contract_i8_matches_int64(focus_axis, row_chunks):
+    """The chunked s8 x s8 -> int32 contraction equals the int64 NumPy
+    product exactly, for every chunk count (tail chunk included): integer
+    sums are exact whatever the order, which is what lets the sharded
+    engine psum the raw partials."""
     rng = np.random.default_rng(61 + focus_axis)
-    n0, n1, K = 64, 256, 5
-    V8 = np.where(rng.random((n0, n1)) < 0.15,
-                  rng.integers(1, 6, (n0, n1)), 0).astype(np.int8)
+    n0, n1, K = 41, 29, 5
+    V8 = np.where(rng.random((n0, n1)) < 0.3,
+                  rng.integers(-127, 128, (n0, n1)), 0).astype(np.int8)
     nc = n1 if focus_axis == 0 else n0
     C = K * (K + 1) // 2
     YZ8 = rng.integers(-127, 128, (nc, C + K)).astype(np.int8)
     Z8 = rng.integers(-127, 128, (nc, K)).astype(np.int8)
-    outs = []
-    for use_pallas in (True, False):
-        PM, BV = dg.fused_pair_contract_i8(
-            jnp.asarray(V8), jnp.asarray(YZ8), jnp.asarray(Z8),
-            focus_axis, use_pallas=use_pallas, row_chunks=7)
-        assert PM.dtype == jnp.int32 and BV.dtype == jnp.int32
-        outs.append((np.asarray(PM), np.asarray(BV)))
-    np.testing.assert_array_equal(outs[0][0], outs[1][0])
-    np.testing.assert_array_equal(outs[0][1], outs[1][1])
-    # and both equal the direct integer reference
+    PM, BV = dg.fused_pair_contract_i8(
+        jnp.asarray(V8), jnp.asarray(YZ8), jnp.asarray(Z8), focus_axis,
+        row_chunks=row_chunks)
+    assert PM.dtype == jnp.int32 and BV.dtype == jnp.int32
     M = (V8 != 0).astype(np.int64)
     W = V8.astype(np.int64)
     if focus_axis == 1:
         M, W = M.T, W.T
-    np.testing.assert_array_equal(outs[0][0], M @ YZ8.astype(np.int64))
-    np.testing.assert_array_equal(outs[0][1], W @ Z8.astype(np.int64))
+    np.testing.assert_array_equal(np.asarray(PM), M @ YZ8.astype(np.int64))
+    np.testing.assert_array_equal(np.asarray(BV), W @ Z8.astype(np.int64))
 
 
-def test_fused_i8_dq_epilogue_matches(monkeypatch):
-    """The in-kernel dequant epilogue (alpha-folded scales, split f32
-    outputs) must match the raw-int32 + fallback-finish + alpha path to
-    f32 rounding — interpret mode, both orientations, padded focus
-    (keep_pad) against the stripped reference's real prefix."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    rng = np.random.default_rng(87)
-    n0, n1, K = 64, 256, 4
-    lin = rng.choice(n0 * n1, 900, replace=False)
-    idx = np.stack([lin // n1, lin % n1], 1)
-    vals = rng.integers(1, 6, 900).astype(np.float64)
+@pytest.mark.parametrize("n_valid", [None, 23])
+def test_fused_quantize_matches_numpy(n_valid):
+    """Per-column symmetric int8 quantization of [triangle | factors]
+    against a NumPy restatement: scale = max|col| / 127 over the valid
+    prefix, codes = clip(round(x / scale)), Z8 = the trailing K columns."""
+    rng = np.random.default_rng(97)
+    n, K = 30, 4
+    U = rng.standard_normal((n, K)).astype(np.float32)
+    if n_valid is not None:
+        U[n_valid:] *= 50.0            # pad rows must not move the scales
+    YZ8, Z8, s_yz, s_z = dg.fused_quantize(jnp.asarray(U), n_valid)
+    iu, ju = np.triu_indices(K)
+    A = np.concatenate([U[:, iu] * U[:, ju], U], axis=1)
+    Av = A if n_valid is None else A[:n_valid]
+    sc = np.maximum(np.abs(Av).max(0) * np.float32(1.0 / 127.0),
+                    np.finfo(np.float32).tiny).astype(np.float32)
+    want = np.clip(np.round(A / sc), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(np.asarray(s_yz), sc)
+    np.testing.assert_array_equal(np.asarray(s_z), sc[-K:])
+    np.testing.assert_array_equal(np.asarray(YZ8), want)
+    np.testing.assert_array_equal(np.asarray(Z8), want[:, -K:])
+
+
+@pytest.mark.parametrize("path", ["pair", "fused"])
+def test_alpha_folded_equals_alpha_after(path):
+    """alpha folded into the s8 dequant scales (the engines' contract)
+    equals alpha applied to the unscaled output, to f32 rounding — for
+    the M/W pair path and the fused path, ridge included."""
+    rng = np.random.default_rng(101)
+    n0, n1, K = 37, 23, 4
+    idx = _coo(rng, n0, n1, 300)
+    vals = rng.integers(1, 6, 300).astype(np.float64)
     mean = float(vals.mean())
-    s, m = dg.fused_pair_encode(idx, vals, (n0, n1))
-    V8 = dg.build_fused_values(idx, vals, (n0, n1), s, m)
+    U = jnp.asarray(rng.standard_normal((n1, K)), jnp.float32)
+    deg = jnp.asarray(np.bincount(idx[:, 0], minlength=n0), jnp.float32)
     alpha = jnp.asarray(2.5, jnp.float32)
-    for focus_axis in (0, 1):
-        nf = (n0, n1)[focus_axis]
-        n_partner = (n1, n0)[focus_axis]
-        U = rng.standard_normal((n_partner, K)).astype(np.float32)
-        deg = jnp.asarray(np.full(nf, 5.0, np.float32))
-        Pt_dq, b_dq = dg.fused_gram_contrib_i8(
-            jnp.asarray(V8), jnp.asarray(U), focus_axis,
-            jnp.float32, s, m, mean, packed=True, transposed=True,
-            use_pallas=True, keep_pad=True, alpha=alpha,
-            ridge_deg=deg)
-        Pt_f, b_f = dg.fused_gram_contrib_i8(
-            jnp.asarray(V8), jnp.asarray(U), focus_axis,
-            jnp.float32, s, m, mean, packed=True, transposed=True,
-            use_pallas=False, ridge_deg=deg)
-        sc = float(jnp.max(jnp.abs(Pt_f))) * 2.5
-        np.testing.assert_allclose(np.asarray(Pt_dq)[:, :nf],
-                                   2.5 * np.asarray(Pt_f),
-                                   atol=1e-5 * sc, rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(b_dq)[:, :nf],
-                                   2.5 * np.asarray(b_f),
-                                   atol=1e-4, rtol=1e-4)
+    if path == "pair":
+        M, W = dg.build_dense_pair(idx, vals - mean, (n0, n1), np.float32)
+        M8, W8, ws = dg.quantize_dense_pair(M, W)
 
+        def run(a):
+            return dg.dense_gram_contrib(
+                jnp.asarray(M8), jnp.asarray(W8), [U], 0, (n0, n1),
+                jnp.float32, jnp.float32, w_scale=ws, ridge_deg=deg,
+                alpha=a)
+    else:
+        s, m = dg.fused_pair_encode(idx, vals, (n0, n1))
+        V8 = jnp.asarray(dg.build_fused_values(idx, vals, (n0, n1), s, m))
 
-def test_fused_i8_dq_ytab_branch_and_pad(monkeypatch):
-    """ADVICE r4 #1/#2 coverage: fused_gram_contrib_i8's dq-epilogue
-    integration with (a) the ytab Pallas quantize branch forced on
-    (_YTAB_MIN_CELLS=0 — CPU test sizes never reach the real gate) and
-    (b) the XLA-fallback quantize against a KERNEL-PADDED V8, where the
-    epilogue must zero-pad YZ8/Z8 to the contract extent itself rather
-    than lean on V8's pad cells masking out-of-bounds block reads.
-    Both must match the raw-int32 + fallback-finish reference."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    rng = np.random.default_rng(88)
-    n0, n1, K = 56, 232, 4
-    p0, p1 = 64, 256                      # kernel-padded stored dims
-    lin = rng.choice(n0 * n1, 800, replace=False)
-    idx = np.stack([lin // n1, lin % n1], 1)
-    vals = rng.integers(1, 6, 800).astype(np.float64)
-    mean = float(vals.mean())
-    s, m = dg.fused_pair_encode(idx, vals, (n0, n1))
-    V8 = np.zeros((p0, p1), np.int8)
-    V8[:n0, :n1] = dg.build_fused_values(idx, vals, (n0, n1), s, m)
-    alpha = jnp.asarray(1.75, jnp.float32)
-    for min_cells in (0.0, 1e18):         # ytab branch / XLA fallback
-        monkeypatch.setattr(dg, "_YTAB_MIN_CELLS", min_cells)
-        for focus_axis in (0, 1):
-            nf = (n0, n1)[focus_axis]
-            pf = (p0, p1)[focus_axis]
-            n_partner = (n1, n0)[focus_axis]
-            U = rng.standard_normal((n_partner, K)).astype(np.float32)
-            deg = np.zeros(pf, np.float32)
-            deg[:nf] = np.bincount(idx[:, focus_axis], minlength=nf)
-            Pt_dq, b_dq = dg.fused_gram_contrib_i8(
-                jnp.asarray(V8), jnp.asarray(U), focus_axis,
-                jnp.float32, s, m, mean, dims=(n0, n1),
-                packed=True, transposed=True,
-                use_pallas=True, keep_pad=True, alpha=alpha,
-                ridge_deg=jnp.asarray(deg))
-            assert Pt_dq.shape[1] == pf       # keep_pad: padded extent
-            Pt_f, b_f = dg.fused_gram_contrib_i8(
-                jnp.asarray(V8), jnp.asarray(U), focus_axis,
-                jnp.float32, s, m, mean, dims=(n0, n1),
-                packed=True, transposed=True,
-                use_pallas=False, ridge_deg=jnp.asarray(deg[:nf]))
-            sc = max(float(jnp.max(jnp.abs(Pt_f))), 1.0) * 1.75
-            np.testing.assert_allclose(np.asarray(Pt_dq)[:, :nf],
-                                       1.75 * np.asarray(Pt_f),
-                                       atol=1e-5 * sc, rtol=1e-5)
-            np.testing.assert_allclose(np.asarray(b_dq)[:, :nf],
-                                       1.75 * np.asarray(b_f),
-                                       atol=1e-4, rtol=1e-4)
-            # pad extent carries no observations: pure prior columns
-            assert not np.asarray(b_dq)[:, nf:].any()
+        def run(a):
+            return dg.fused_gram_contrib_i8(V8, U, 0, jnp.float32, s, m,
+                                            mean, ridge_deg=deg, alpha=a)
+    P_f, b_f = run(alpha)
+    P_0, b_0 = run(None)
+    sc = float(jnp.max(jnp.abs(P_0))) * 2.5
+    np.testing.assert_allclose(np.asarray(P_f), 2.5 * np.asarray(P_0),
+                               atol=1e-6 * sc, rtol=1e-6)
+    sb = float(jnp.max(jnp.abs(b_0))) * 2.5
+    np.testing.assert_allclose(np.asarray(b_f), 2.5 * np.asarray(b_0),
+                               atol=1e-6 * sb, rtol=1e-6)
 
 
 def test_fused_tol_ab_same_data_quality():
@@ -643,40 +443,6 @@ def test_engine_fused_plan_oracle_equiv():
     _run_equiv(rd, cfg, n_sweeps=3)
 
 
-def test_engine_fused_packed_fast_path_matches(monkeypatch):
-    """The packed Pallas fast path with fused contributions uses the
-    NATURAL (non-transposed) layout (the flipped masked dot is 2.5x
-    slower on TPU, r3 probe); interpret-mode run must match the plain
-    XLA path."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    from bayesiandatafusion_jl_tpu.models.engine import MacauEngine
-    from bayesiandatafusion_jl_tpu.utils.rng import draw_all_numpy
-
-    rng = np.random.default_rng(13)
-    rd = _grid_rd(rng)
-    outs = []
-    for pallas in ("on", "off"):
-        cfg = MacauConfig(num_latent=3, verbose=False, dtype="float32",
-                          dense_gram=True, dense_fused=True, seed=23,
-                          pallas=pallas)
-        eng = MacauEngine(rd, cfg)
-        key = jax.random.key(cfg.seed)
-        state = eng.init_state(jax.random.fold_in(key, 0))
-        nrng = np.random.default_rng(77)
-        for _ in range(2):
-            randoms = draw_all_numpy(nrng, eng.problem.random_spec)
-            jr = {k: jnp.asarray(v, jnp.float32)
-                  for k, v in randoms.items()}
-            state, _ = eng._sweep_randoms_jit(eng.problem.arrays, state,
-                                              jr, 0.0)
-        outs.append(np.asarray(state["ent"][0]["U"]))
-    np.testing.assert_allclose(outs[0], outs[1], rtol=2e-4, atol=2e-4)
-
-
 def test_engine_hybrid_duplicates_oracle_equiv():
     """Hybrid fused relation (duplicates -> exact gather residual): the
     split accumulation is mathematically identical to one-path
@@ -742,51 +508,3 @@ def test_engine_fused_auto_declines_when_pair_fits():
     from bayesiandatafusion_jl_tpu.models.engine import MacauEngine
     eng = MacauEngine(rd, cfg)
     assert not eng.problem.fused_rels
-
-
-def test_pair_contract_pallas_matches_direct(monkeypatch):
-    """ops/pallas_pair (probe-stage kernel family, r5): both orientations
-    of the dequanting pair contraction must equal the direct integer
-    reference exactly (exact int32 sums, one f32 scale multiply).  The
-    kernel is NOT engine-wired — on-chip probes showed XLA's int8 pair
-    einsums already run at 259-347 TOP/s at ML-10M extents and the
-    kernel at 225-250, a documented negative result (ROUND5_NOTES) —
-    but the committed code stays correct under interpret mode."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    from bayesiandatafusion_jl_tpu.ops.pallas_pair import \
-        pair_contract_pallas
-    rng = np.random.default_rng(93)
-    n0, n1, K = 64, 256, 4
-    C = K * (K + 1) // 2
-    M8 = rng.integers(0, 3, (n0, n1)).astype(np.int8)
-    W8 = rng.integers(-127, 128, (n0, n1)).astype(np.int8)
-    YZ8_0 = rng.integers(-127, 128, (n0, C + K)).astype(np.int8)
-    Z8_0 = rng.integers(-127, 128, (n0, K)).astype(np.int8)
-    YZ8_1 = rng.integers(-127, 128, (n1, C + K)).astype(np.int8)
-    Z8_1 = rng.integers(-127, 128, (n1, K)).astype(np.int8)
-    s_yz = rng.uniform(0.5, 2.0, C + K).astype(np.float32)
-    s_z = rng.uniform(0.5, 2.0, K).astype(np.float32)
-    # focus rows: contract n1 against the [n1, .] tables
-    Pt, BV = pair_contract_pallas(
-        jnp.asarray(M8), jnp.asarray(W8), jnp.asarray(YZ8_1),
-        jnp.asarray(Z8_1), jnp.asarray(s_yz), jnp.asarray(s_z), 0)
-    ref_pm = (M8.astype(np.int64) @ YZ8_1.astype(np.int64))
-    ref_bv = (W8.astype(np.int64) @ Z8_1.astype(np.int64))
-    np.testing.assert_array_equal(
-        np.asarray(Pt), (ref_pm.astype(np.float32) * s_yz).T[:C])
-    np.testing.assert_array_equal(
-        np.asarray(BV), (ref_bv.astype(np.float32) * s_z).T)
-    # focus cols: contract n0
-    Pt1, BV1 = pair_contract_pallas(
-        jnp.asarray(M8), jnp.asarray(W8), jnp.asarray(YZ8_0),
-        jnp.asarray(Z8_0), jnp.asarray(s_yz), jnp.asarray(s_z), 1)
-    ref_pm1 = (M8.T.astype(np.int64) @ YZ8_0.astype(np.int64))
-    ref_bv1 = (W8.T.astype(np.int64) @ Z8_0.astype(np.int64))
-    np.testing.assert_array_equal(
-        np.asarray(Pt1), (ref_pm1.astype(np.float32) * s_yz).T[:C])
-    np.testing.assert_array_equal(
-        np.asarray(BV1), (ref_bv1.astype(np.float32) * s_z).T)

@@ -1,11 +1,10 @@
 """Long-chain production-path quality gates (VERDICT r2 #3).
 
-The headline bench path runs x32 + dense_int8 (+ packed Pallas kernels on
-TPU); its deliberate approximations — int8 quantization with the PD
-safety ridge — were validated in r2 only by one-off forensic runs.  These
-tests make the validation automated: a 200-sweep int8 chain must track
-the f64 gather-path RMSE trajectory within MCMC noise, and the
-PD-ridge's effect on the posterior spread must stay bounded.
+The headline bench path runs x32 + dense_int8; its deliberate approximations —
+int8 quantization with the PD safety ridge — were validated in r2 only by
+one-off forensic runs.  These tests make the validation automated: a 200-sweep
+int8 chain must track the f64 gather-path RMSE trajectory within MCMC noise,
+and the PD-ridge's effect on the posterior spread must stay bounded.
 """
 import numpy as np
 import pytest
@@ -38,7 +37,7 @@ def _run_chain(dtype, dense, sweeps=200, **kw):
 
 @pytest.mark.slow
 def test_int8_chain_tracks_f64_gather_trajectory():
-    """200 sweeps of the production int8 MXU path (exact-int32 dots,
+    """200 sweeps of the production int8 path (exact-int32 dots,
     quantized tables, PD safety ridge) vs 200 sweeps of the f64 gather
     path: the held-out RMSE trajectory and the posterior-mean RMSE must
     agree within MCMC noise.  The chains themselves diverge chaotically

@@ -3,7 +3,7 @@ hosts"): two OS processes, each with 2 CPU devices, form a global 4-device
 mesh via jax.distributed.initialize; ShardedMacauEngine must produce the
 SAME factors as the single-process engine at 1e-8.
 
-This is the localhost stand-in for multi-host TPU pods — it catches
+This is the localhost stand-in for multi-host clusters — it catches
 global-vs-addressable device bugs (sharded device_put, collective launch
 order) that a single-process virtual mesh structurally cannot.
 """

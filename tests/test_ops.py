@@ -1,8 +1,13 @@
 """Unit tests for the numerical kernels: Cholesky-MVN, Bartlett Wishart,
-Normal-Wishart conditional, block CG."""
+Normal-Wishart conditional, block CG, precision assembly."""
+import ast
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import scipy.linalg as sla
 import scipy.stats
 
 from bayesiandatafusion_jl_tpu.ops.cg import block_cg
@@ -276,12 +281,12 @@ def test_bucket_gramian_chunked_bitwise():
         np.testing.assert_array_equal(np.asarray(b1), np.asarray(b2))
 
 
-def test_packed_bucket_accum_chunked_matches(monkeypatch):
-    """Row-chunked packed_bucket_accum (the Netflix-scale hybrid-residual
-    transient bound, VERDICT r4 missing #2) must match the one-shot path
-    to f64 roundoff (chunk partial-sums reassociate the segment
-    reduction) and exactly reproduce a direct NumPy accumulation."""
-    from bayesiandatafusion_jl_tpu.ops import gramian as gr
+@pytest.mark.parametrize("fuse_lambda", [False, True])
+def test_assemble_precision_matches_direct(fuse_lambda):
+    """One segment-sum over all buckets' rows equals a direct per-row
+    NumPy accumulation (alpha-scaled), with Lambda in P or left to the
+    sampler (fuse_lambda, the head-split contract)."""
+    from bayesiandatafusion_jl_tpu.ops.gramian import assemble_precision
     rng = np.random.default_rng(13)
     rows, W, K, Np, n = 53, 8, 4, 40, 29
     U = jnp.asarray(rng.standard_normal((Np, K)))
@@ -291,24 +296,107 @@ def test_packed_bucket_accum_chunked_matches(monkeypatch):
     inst = jnp.asarray(rng.integers(0, n, rows).astype(np.int32))
     contribs = [(1.7, [U], {"part": [part], "val": val, "mask": mask,
                             "inst": inst})]
-    Pp1, b1 = gr.packed_bucket_accum(contribs, n, K)
-    monkeypatch.setattr(gr, "_PACKED_CHUNK_BYTES", 2000.0)  # many chunks
-    Pp2, b2 = gr.packed_bucket_accum(contribs, n, K)
-    np.testing.assert_allclose(np.asarray(Pp1), np.asarray(Pp2),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
-                               rtol=1e-12, atol=1e-12)
-    # direct reference
-    iu, ju = np.triu_indices(K)
+    Lam = _spd(rng, K)
+    prior = rng.standard_normal((n, K))
+    P, b = assemble_precision(jnp.asarray(Lam), jnp.asarray(prior),
+                              contribs, n, fuse_lambda=fuse_lambda)
     z = np.asarray(U)[np.asarray(part)] * np.asarray(mask)[..., None]
     P_rows = np.einsum("rwk,rwl->rkl", z, z)
     b_rows = np.einsum("rwk,rw->rk", z, np.asarray(val))
-    Pp_ref = np.zeros((n, len(iu)))
-    b_ref = np.zeros((n, K))
+    P_ref = np.zeros((n, K, K)) if fuse_lambda else np.tile(Lam, (n, 1, 1))
+    b_ref = prior @ Lam
     for r in range(rows):
-        Pp_ref[int(inst[r])] += 1.7 * P_rows[r][iu, ju]
+        P_ref[int(inst[r])] += 1.7 * P_rows[r]
         b_ref[int(inst[r])] += 1.7 * b_rows[r]
-    np.testing.assert_allclose(np.asarray(Pp1), Pp_ref, rtol=1e-9,
-                               atol=1e-9)
-    np.testing.assert_allclose(np.asarray(b1), b_ref, rtol=1e-9,
-                               atol=1e-9)
+    np.testing.assert_allclose(np.asarray(P), P_ref, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(np.asarray(b), b_ref, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1e-3])
+@pytest.mark.parametrize("K", [1, 4, 8, 32, 48, 96, 128])
+def test_chol_sample_matches_numpy_f64(K, jitter):
+    """chol_sample against a NumPy/SciPy f64 restatement of the per-row
+    draw u = P^{-1} b + L^{-T} xi (P + jitter I = L L^T), at every latent
+    width the engines run (the K range the removed fused samplers
+    covered, and beyond)."""
+    rng = np.random.default_rng(K)
+    B = 5
+    P = _spd(rng, K, (B,))
+    b = rng.standard_normal((B, K))
+    xi = rng.standard_normal((B, K))
+    got = np.asarray(chol_sample(jnp.asarray(P), jnp.asarray(b),
+                                 jnp.asarray(xi), jitter))
+    want = np.empty((B, K))
+    for i in range(B):
+        L = np.linalg.cholesky(P[i] + jitter * np.eye(K))
+        want[i] = (sla.cho_solve((L, True), b[i])
+                   + sla.solve_triangular(L, xi[i], lower=True, trans="T"))
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+def test_chol_sample_dispatch_adds_lambda():
+    """chol_sample_dispatch(Lambda=...) samples from P + Lambda (the
+    head-split accumulators leave Lambda out of P), with the configured
+    jitter; without Lambda it is chol_sample itself."""
+    from bayesiandatafusion_jl_tpu.ops.mvn import chol_sample_dispatch
+    from bayesiandatafusion_jl_tpu.utils.config import MacauConfig
+    rng = np.random.default_rng(17)
+    B, K = 6, 5
+    P = jnp.asarray(_spd(rng, K, (B,)))
+    Lam = jnp.asarray(_spd(rng, K))
+    b = jnp.asarray(rng.standard_normal((B, K)))
+    xi = jnp.asarray(rng.standard_normal((B, K)))
+    cfg = MacauConfig(num_latent=K, chol_jitter=1e-3)
+    np.testing.assert_allclose(
+        np.asarray(chol_sample_dispatch(cfg, P, b, xi, Lambda=Lam)),
+        np.asarray(chol_sample(P + Lam, b, xi, 1e-3)), rtol=1e-12,
+        atol=1e-12)
+    np.testing.assert_array_equal(
+        np.asarray(chol_sample_dispatch(cfg, P, b, xi)),
+        np.asarray(chol_sample(P, b, xi, 1e-3)))
+
+
+def test_int8_pair_ok_layout_invariant_guards():
+    """Eligibility comes from the observation index, not a stored layout:
+    counts beyond int8 and int32-overflowable big-axis fibers decline."""
+    from bayesiandatafusion_jl_tpu.ops.dense_gram import int8_pair_ok
+    rng = np.random.default_rng(3)
+    idx = np.stack([rng.integers(0, 10, 500), rng.integers(0, 8, 500),
+                    rng.integers(0, 5, 500)], 1)
+    assert int8_pair_ok(idx, (10, 8, 5))
+    # duplicate multiplicity > 127
+    dup = np.tile(np.array([[1, 2, 3]]), (130, 1))
+    assert not int8_pair_ok(np.concatenate([idx, dup]), (10, 8, 5))
+    # a fiber along the big partner axis (axis 1) that would overflow the
+    # int32 accumulator: 140k observations at fixed (axis0, axis2)
+    n_fib = 140_000
+    fib = np.stack([np.zeros(n_fib, np.int64),
+                    rng.integers(0, 200_000, n_fib),
+                    np.zeros(n_fib, np.int64)], 1)
+    assert not int8_pair_ok(fib, (10, 200_000, 5))
+
+
+def test_unknown_accumulation_rejected():
+    from bayesiandatafusion_jl_tpu.utils.config import MacauConfig
+    with pytest.raises(ValueError):
+        MacauConfig(accumulation="window")
+
+
+def test_no_module_imports_tpu_pallas():
+    """No module of the package imports the TPU-only Pallas backend: the
+    engine runs through XLA on every platform it supports."""
+    pkg = pathlib.Path(__file__).resolve().parents[1] / \
+        "bayesiandatafusion_jl_tpu"
+    bad = []
+    for path in sorted(pkg.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.startswith("jax.experimental.pallas.tpu")
+                    or n.split(".")[:4] == ["jax", "_src", "pallas",
+                                            "mosaic"]]
+    assert not bad, bad

@@ -1,4 +1,4 @@
-"""RNG-injection equivalence: the TPU engine vs the NumPy f64 oracle.
+"""RNG-injection equivalence: the device engine vs the NumPy f64 oracle.
 
 SURVEY.md §6/§9.5: both consume the SAME randoms pytree; per-sweep factor
 updates must match to float64 tolerance.  This is the contract standing in
@@ -183,7 +183,7 @@ def test_symmetric_relation_equivalence():
 
 
 def test_dense_gram_equivalence():
-    """accumulation via dense-MXU M @ Y matmuls (ops/dense_gram.py) must
+    """accumulation via dense M @ Y matmuls (ops/dense_gram.py) must
     match the oracle exactly — same per-observation semantics, different
     summation order only."""
     rng = np.random.default_rng(31)

@@ -11,7 +11,7 @@ held-out RMSE trajectory against the literature anchors:
 - ML-10M   (nnz ~1e7): converged ~0.86 (BASELINE.md anchor); the CPU
   test subsamples to 2M observations (higher RMSE), so it asserts a
   broad sanity band — the precise full-scale sweep-for-sweep check is
-  bench.py's job on the TPU (it auto-detects the same file and tags the
+  bench.py's job on the GPU (it auto-detects the same file and tags the
   JSON metric "REAL data").
 
 The bands are deliberately wide: they catch gross model wrongness (an

@@ -284,7 +284,7 @@ def test_head_split_matches_single():
 
 
 def test_sharded_dense_gram_matches_single():
-    """Dense-MXU path on both engines: 8-device focus-sharded M/W slabs
+    """Dense-matmul path on both engines: 8-device focus-sharded M/W slabs
     must reproduce the single-device dense engine (and hence the oracle)
     at 1e-8, including a dense mode coexisting with head splitting."""
     rng = np.random.default_rng(11)
@@ -353,7 +353,7 @@ def test_sharded_fused_matches_single():
 
 
 def test_sharded_fused_int8_matches_single():
-    """Fused s8 MXU variant on both engines: the partner table is
+    """Fused s8 variant on both engines: the partner table is
     quantized against column-max scales over the valid prefix
     (permutation-invariant), the contraction accumulates in exact int32,
     and mode 1 psums the RAW int32 partials before dequantizing — so the
@@ -414,46 +414,8 @@ def test_sharded_fused_hybrid_matches_single():
                                rtol=1e-8, atol=1e-8)
 
 
-def test_sharded_fused_kernel_parity(monkeypatch):
-    """r4: the masked-pair kernels run INSIDE shard_map (interpret
-    mode), with kernel-block entity padding (pad_gran) and the flip
-    layout psum_scattered on dimension 1.  The 8-device factors must
-    equal the single-device kernel engine at 1e-8 in f64 (the i8
-    contraction is exact int32 whatever the partial-sum order)."""
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    rng = np.random.default_rng(83)
-    n1, n2 = 53, 37
-    mask = rng.random((n1, n2)) < 0.5
-    idx = np.stack(np.nonzero(mask), 1)
-    vals = rng.choice(np.arange(1.0, 6.0), idx.shape[0])
-    df = bdf.IndexedDF(idx, vals, (n1, n2))
-
-    def build():
-        rd = bdf.RelationData.from_indexed_df(df)
-        rd.assign_to_test(0, 70, seed=1)
-        return rd
-
-    cfg = MacauConfig(num_latent=3, burnin=1, psamples=2, verbose=False,
-                      dtype="float64", dense_gram=True, dense_fused=True,
-                      dense_int8=True, pallas="on", seed=19,
-                      clamp=(1.0, 5.0))
-    eng8 = ShardedMacauEngine(build(), cfg, mesh=data_mesh())
-    assert eng8.problem.fused_i8.get(0), "fused s8 kernels did not engage"
-    # kernel-block padding engaged (256*n_dev / 512*n_dev granules)
-    assert eng8.problem.ent_meta[0].n_pad % (256 * 8) == 0
-    assert eng8.problem.ent_meta[1].n_pad % (512 * 8) == 0
-    r1, r8 = _compare_engines(build, cfg, n_sweeps=3)
-    np.testing.assert_allclose(r8["predictions"]["pred"],
-                               r1["predictions"]["pred"],
-                               rtol=1e-8, atol=1e-8)
-
-
 def test_sharded_fused_with_head_split():
-    """Fused modes ignore head splitting (row-balanced MXU work); the
+    """Fused modes ignore head splitting (row-balanced matmul work); the
     ghost-slot machinery must stay structurally idle and parity hold."""
     rng = np.random.default_rng(29)
     n1, n2 = 53, 9

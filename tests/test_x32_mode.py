@@ -1,4 +1,4 @@
-"""Production mode is x32 (TPU default); the rest of the suite enables
+"""Production mode is x32 (the JAX default); the rest of the suite enables
 x64 globally, so run one end-to-end macau in a pristine x32 subprocess."""
 import subprocess
 import sys
